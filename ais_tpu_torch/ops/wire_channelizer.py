@@ -1,0 +1,202 @@
+"""K1: the cr1 wire channelizer (bytes -> +-1 -> IF-folded mix -> FIR).
+
+Counterpart of the cr1 wire kernel in `ais_tpu/ops/pallas_fir.py`
+(`_pallas_wire_channelizer_cr1`).  For each channel c it computes, from
+the definition,
+
+    y[c, m] = sum_{k < ntaps} h[k] * s[m*D + k] * car_c[m*D + k]
+
+where s[n] = +-1 is bit n of the wire (8 samples a byte, MSB first) and
+car_c[n] = e^{-j2pi (off_c + fs/4) n / fs} * e^{j phase0_c}: the
+channel's mixer with cr1's (-j)^n IF downconversion folded in, n
+counted from the start of the buffer, rotated by the runtime start
+phase `phase0_c` of the *baseband* offset at the step's stream
+position (`ops/fir.py:mixer_phase`).  With rational offsets the carrier
+is periodic (q = 96 samples at +-25 kHz + fs/4 on 2.4 Msps), so it
+lives in a (n_chan, q) table that is rotated once per call.
+
+Two implementations of one contract:
+
+  - `wire_channelizer_cr1_plain`: bit unpack, carrier, then the
+    reshape-and-matmul polyphase FIR (`ops/fir.py:fir_polyphase`);
+  - the CUDA kernel `csrc/wire_channelizer.cu`, launched by
+    `wire_channelizer_cr1` for a CUDA tensor.
+
+`wire_channelizer_cr1` takes the plain version only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from ais_tpu_torch import _build
+from ais_tpu_torch.ops.convert import unpack_bits_pm1
+from ais_tpu_torch.ops.fir import fir_polyphase
+
+# The kernel stages the whole carrier table in shared memory.
+MAX_CARRIER_PERIOD = 2048
+MAX_CHANNELS = 4
+
+
+def carrier_period_samples(offset_hz: float, sample_rate: float,
+                           max_period: int = 1 << 14) -> int | None:
+    """Smallest q with offset/fs = p/q exactly (None if > max_period)."""
+    if offset_hz == 0:
+        return 1
+    fr = Fraction(offset_hz / sample_rate).limit_denominator(max_period)
+    if fr == 0:
+        return None
+    err = abs(offset_hz / sample_rate - float(fr))
+    return int(fr.denominator) if err < 1e-12 else None
+
+
+def _if_offsets(offsets_hz, sample_rate: float) -> tuple:
+    """The channels' mixer frequencies with cr1's fs/4 IF folded in."""
+    return tuple(float(o) + float(sample_rate) / 4.0 for o in offsets_hz)
+
+
+def carrier_table_period(offsets_hz, sample_rate: float) -> int | None:
+    """Common period of the IF-folded carriers (None if not periodic)."""
+    periods = [carrier_period_samples(o, sample_rate)
+               for o in _if_offsets(offsets_hz, sample_rate)]
+    if any(p is None for p in periods):
+        return None
+    return int(np.lcm.reduce(periods))
+
+
+def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,
+                               sample_rate: float, n_in: int | None = None) -> bool:
+    """True when K1 handles this (format, geometry).
+
+    The kernel needs: cr1; at most MAX_CHANNELS channels; periodic
+    IF-folded carriers with a period that fits its shared-memory table;
+    and, when `n_in` is given, whole bytes and whole decimation rows.
+    It has no tile constraints of its own (the TPU kernel's n_in % 200
+    and 128-lane rules come from Mosaic, not from the contract).
+    """
+    if fmt != "cr1" or not 1 <= len(offsets_hz) <= MAX_CHANNELS:
+        return False
+    q = carrier_table_period(offsets_hz, sample_rate)
+    if q is None or q > MAX_CARRIER_PERIOD:
+        return False
+    if n_in is not None and (n_in % 8 or n_in % decim or n_in < ntaps):
+        return False
+    return True
+
+
+def carrier_table(offsets_hz, sample_rate: float) -> np.ndarray:
+    """(n_chan, q, 2) float32: entry [c, i] is e^{-j2pi f_c i / fs} with
+    f_c = off_c + fs/4; float64 phase on the host."""
+    q = carrier_table_period(offsets_hz, sample_rate)
+    if q is None:
+        raise ValueError(f"offsets {offsets_hz} give no periodic carrier at {sample_rate}")
+    n = np.arange(q, dtype=np.float64)
+    out = np.empty((len(offsets_hz), q, 2), np.float32)
+    for c, f in enumerate(_if_offsets(offsets_hz, sample_rate)):
+        ph = np.remainder(-2.0 * np.pi * (f / sample_rate) * n, 2 * np.pi)
+        cplx = np.exp(1j * ph)
+        out[c, :, 0] = cplx.real.astype(np.float32)
+        out[c, :, 1] = cplx.imag.astype(np.float32)
+    return out
+
+
+def rotate_carrier(car: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
+    """Rotate the (n_chan, q, 2) table by the per-channel start phases."""
+    rot_r = torch.cos(phase0s)[:, None]
+    rot_i = torch.sin(phase0s)[:, None]
+    cr, ci = car[..., 0], car[..., 1]
+    return torch.stack([cr * rot_r - ci * rot_i, cr * rot_i + ci * rot_r], dim=-1)
+
+
+def _n_out(n_in: int, ntaps: int, decim: int) -> int:
+    return (n_in - ntaps) // decim + 1
+
+
+def wire_channelizer_cr1_plain(raw_u8: torch.Tensor, car: torch.Tensor,
+                               taps: torch.Tensor, decim: int,
+                               n_in: int) -> torch.Tensor:
+    """Plain PyTorch K1: (n_in/8,) uint8 -> (n_chan, n_out) complex64.
+
+    `car` is the rotated (n_chan, q, 2) carrier table."""
+    s = unpack_bits_pm1(raw_u8, n_in)                       # (n_in,)
+    q = car.shape[1]
+    reps = -(-n_in // q)
+    seq = car.repeat(1, reps, 1)[:, :n_in]                  # (n_chan, n_in, 2)
+    mixed = (seq * s[None, :, None]).movedim(-1, -2)        # (n_chan, 2, n_in)
+    y = fir_polyphase(mixed, taps, decim)                   # (n_chan, 2, n_out)
+    return torch.complex(y[:, 0], y[:, 1])
+
+
+def _wire_channelizer_cr1_cuda(raw_u8: torch.Tensor, car: torch.Tensor,
+                               taps: torch.Tensor, decim: int,
+                               n_in: int) -> torch.Tensor:
+    dev = raw_u8.device
+    if raw_u8.dtype != torch.uint8 or raw_u8.dim() != 1 or not raw_u8.is_contiguous():
+        raise ValueError("raw_u8 must be a contiguous 1-D uint8 tensor")
+    if raw_u8.numel() != n_in // 8 or n_in % 8 or n_in % decim:
+        raise ValueError(f"wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
+    if car.dtype != torch.float32 or car.dim() != 3 or car.shape[-1] != 2:
+        raise ValueError("carrier must be a (n_chan, q, 2) float32 table")
+    if taps.dtype != torch.float32 or taps.dim() != 1:
+        raise ValueError("taps must be a 1-D float32 tensor")
+    if car.device != dev or taps.device != dev:
+        raise ValueError("raw, carrier and taps must be on one device")
+    n_chan, q = car.shape[0], car.shape[1]
+    if not 1 <= n_chan <= MAX_CHANNELS or q > MAX_CARRIER_PERIOD:
+        raise ValueError(f"unsupported carrier table {tuple(car.shape)}")
+    car = car.contiguous()
+    taps = taps.contiguous()
+    ntaps = taps.numel()
+    n_out = _n_out(n_in, ntaps, decim)
+    if n_out <= 0:
+        raise ValueError(f"n_in={n_in} is shorter than the filter ({ntaps} taps)")
+    out = torch.empty((n_chan, n_out), dtype=torch.complex64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.WIRE_CHANNELIZER_CR1(
+        raw_u8.data_ptr(), car.data_ptr(), taps.data_ptr(),
+        torch.view_as_real(out).data_ptr(),
+        raw_u8.numel(), n_out, ntaps, decim, q, n_chan, stream,
+    )
+    return out
+
+
+def wire_channelizer_cr1(raw_u8: torch.Tensor, car: torch.Tensor,
+                         taps: torch.Tensor, *, decim: int,
+                         n_in: int) -> torch.Tensor:
+    """K1 on the tensor's device: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Returns (n_chan, n_out) complex64."""
+    if raw_u8.device.type == "cuda":
+        return _wire_channelizer_cr1_cuda(raw_u8, car, taps, decim, n_in)
+    if raw_u8.device.type == "cpu":
+        return wire_channelizer_cr1_plain(raw_u8, car, taps, decim, n_in)
+    raise NotImplementedError(f"no wire channelizer for device {raw_u8.device}")
+
+
+class WireChannelizer(torch.nn.Module):
+    """cr1 wire bytes -> (n_chan, n_out) channels; owns the taps and the
+    unrotated carrier table."""
+
+    def __init__(self, taps: np.ndarray, decim: int, offsets_hz,
+                 sample_rate: float, n_in: int, device=None):
+        super().__init__()
+        taps = np.asarray(taps, np.float32)
+        if not wire_channelizer_supported("cr1", taps.size, decim, offsets_hz,
+                                          sample_rate, n_in):
+            raise ValueError(
+                f"cr1 wire channelizer unsupported: decim={decim}, "
+                f"offsets={tuple(offsets_hz)}, rate={sample_rate}, n_in={n_in}"
+            )
+        self.decim = int(decim)
+        self.n_in = int(n_in)
+        self.n_out = _n_out(self.n_in, taps.size, self.decim)
+        self.register_buffer("taps", torch.tensor(taps, device=device))
+        self.register_buffer(
+            "carrier", torch.tensor(carrier_table(offsets_hz, sample_rate), device=device)
+        )
+
+    def forward(self, raw_u8: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
+        car = rotate_carrier(self.carrier, phase0s)
+        return wire_channelizer_cr1(raw_u8, car, self.taps, decim=self.decim, n_in=self.n_in)

@@ -1,0 +1,543 @@
+"""Wideband dual-channel receiver: cr1 wire bytes -> AIS packets.
+
+Port of the wire API of `ais_tpu/pipeline/wideband.py` for
+`fmt="cr1"`.  One step takes the wire bytes of n_in samples at 2.4 Msps
+and runs, on the receiver's device:
+
+  K1 wire channelizer (bytes -> both channels at 48 ksps)
+  -> overlap-save framing into demod blocks
+  -> BurstDemod (AGC, AFC, K2 matched filter, detection, timing, bits)
+  -> record pack (`pack_wire_compact`, or `pack_wire_flat` with
+     compact_lanes=0) into ONE uint8 buffer
+
+then, on the host, unpacks the buffer, deframes HDLC (native batch
+call), deduplicates and drops I/Q-image ghosts.
+
+Stream contract (as in the reference): each call covers n_in samples but
+advances the stream by step_raw < n_in; the last n_in - step_raw samples
+(`wire_overlap_samples`) are the framing halo and must be presented
+again at the start of the next call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import logging
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ais_tpu.core.params import AIS_BIT_RATE, DeframerConfig, DemodConfig
+from ais_tpu_torch.ops.convert import cr1_wire_nbytes
+from ais_tpu_torch.ops.fir import mixer_phase
+from ais_tpu_torch.ops.interp import NSTEPS, NTAPS
+from ais_tpu_torch.ops.wire_channelizer import WireChannelizer, wire_channelizer_supported
+from ais_tpu_torch.pipeline.host import (
+    PacketDeduper,
+    decode_wire_records,
+    suppress_image_ghosts,
+)
+from ais_tpu_torch.pipeline.receiver import (
+    BurstDemod,
+    BurstRecords,
+    burst_table_geometry,
+    preamble_waveform,
+    required_halo,
+)
+
+log = logging.getLogger("ais_tpu_torch")
+
+
+class WidebandConfig(NamedTuple):
+    """Same fields and defaults as the reference's WidebandConfig."""
+
+    input_rate: float = 2.4e6
+    offsets_hz: tuple = (-25e3, +25e3)   # channel A, B around 162.0 MHz
+    designators: tuple = ("A", "B")
+    decimation: int = 50
+    cutoff_hz: float = 11e3
+    transition_hz: float = 2e3
+    block_len: int = 16384               # demod block at channel rate
+    demod: DemodConfig = DemodConfig()
+    deframer: DeframerConfig = DeframerConfig()
+    # Drop cross-channel I/Q-image ghosts (pipeline/host.py).
+    image_reject: bool = True
+    # A block whose burst table or lane directory overflows is
+    # re-demodulated on the host in the reference; that recovery is not
+    # ported yet (ROADMAP A.6), so with True the port raises naming the
+    # blocks, and with False it logs them.
+    overflow_recovery: bool = True
+    # Valid-lane compaction of the device-to-host buffer (0 = off): ship
+    # only this many valid lanes plus a lane directory.
+    compact_lanes: int = 0
+
+    @property
+    def channel_rate(self) -> float:
+        return self.input_rate / self.decimation
+
+    @property
+    def sps(self) -> float:
+        return self.channel_rate / AIS_BIT_RATE
+
+    @property
+    def core_len(self) -> int:
+        return self.block_len - required_halo(self.demod)
+
+
+class WireRecords(NamedTuple):
+    """Record planes the host back half reads (torch on the device, numpy
+    on the host)."""
+
+    meta_i: object  # (C, B, K, 6) int32: position, win_start, valid,
+                    #   n_detected, bit_valid run (first, count)
+    meta_f: object  # (C, B, K, 3) float32: corr mag^2, freq_est_hz, rssi
+    packed: object  # (C, B, K, 1|2, n_pack) uint8 bit planes, MSB first
+
+
+class ReceiverConstants(NamedTuple):
+    """The slice's constants: what weights are to a model."""
+
+    taps: np.ndarray         # (ntaps,) float32 channelizer low-pass
+    preamble: np.ndarray     # (L,) complex64 GMSK preamble waveform
+    interp_bank: np.ndarray  # (129, 8) float32 interpolation bank
+    ff_delta: float          # feedforward tone-phase calibration
+
+
+def channel_taps(cfg: WidebandConfig) -> np.ndarray:
+    from ais_tpu.ops.firdes import low_pass
+
+    return low_pass(1.0, cfg.input_rate, cfg.cutoff_hz, cfg.transition_hz)
+
+
+@functools.lru_cache(maxsize=8)
+def num_taps(cfg: WidebandConfig) -> int:
+    return int(channel_taps(cfg).size)
+
+
+def _demod_cfg(cfg: WidebandConfig) -> DemodConfig:
+    return dataclasses.replace(cfg.demod, samples_per_symbol=cfg.sps)
+
+
+def default_constants(cfg: WidebandConfig) -> ReceiverConstants:
+    """The constants as the reference builds them for `cfg`."""
+    from ais_tpu_torch.ops.interp import interp_taps
+    from ais_tpu_torch.sync.feedforward import ff_delta
+
+    dcfg = _demod_cfg(cfg)
+    return ReceiverConstants(
+        taps=channel_taps(cfg),
+        preamble=preamble_waveform(dcfg).astype(np.complex64),
+        interp_bank=interp_taps(),
+        ff_delta=ff_delta(dcfg.samples_per_symbol, dcfg.gmsk_bt),
+    )
+
+
+def constants_from_reference(taps, preamble, interp_bank, ff_delta) -> ReceiverConstants:
+    """Take the reference package's constants (numpy arrays) as the port's.
+
+    `taps`: the channelizer low-pass (`low_pass(1, 2.4e6, 11e3, 2e3)`);
+    `preamble`: the correlator waveform; `interp_bank`: the (129, 8)
+    interpolation bank; `ff_delta`: `sync/feedforward.py:_calibrate`."""
+    taps = np.asarray(taps, np.float32)
+    preamble = np.asarray(preamble, np.complex64)
+    bank = np.asarray(interp_bank, np.float32)
+    if taps.ndim != 1 or preamble.ndim != 1:
+        raise ValueError("taps and preamble must be 1-D")
+    if bank.shape != (NSTEPS + 1, NTAPS):
+        raise ValueError(f"interp_bank must be {(NSTEPS + 1, NTAPS)}, got {bank.shape}")
+    return ReceiverConstants(taps, preamble, bank, float(ff_delta))
+
+
+def wideband_geometry(cfg: WidebandConfig, n_in: int) -> tuple[int, int, int]:
+    """(n_channels, n_blocks, core_len) for an input of n_in raw samples."""
+    n48 = (n_in - num_taps(cfg)) // cfg.decimation + 1
+    core_len = cfg.core_len
+    n_blocks = max(0, (n48 - cfg.block_len) // core_len + 1)
+    if n_blocks == 0:
+        raise ValueError(
+            f"n_in {n_in} too short: yields {n48} channel samples < block_len {cfg.block_len}")
+    return len(cfg.offsets_hz), n_blocks, core_len
+
+
+def aligned_n_in(cfg: WidebandConfig, n_in: int | None = None) -> int:
+    """n_in rounded up to whole decimation rows and whole wire bytes
+    (lcm(decim, 8)); default ~64 demod blocks a call."""
+    if n_in is None:
+        n48 = cfg.block_len + cfg.core_len * 63
+        n_in = (n48 - 1) * cfg.decimation + num_taps(cfg)
+    align = int(np.lcm(cfg.decimation, 8))
+    return -(-n_in // align) * align
+
+
+def pack_bits(plane: torch.Tensor) -> torch.Tensor:
+    """(..., n) 0/1 -> (..., ceil(n/8)) uint8, MSB first (np.packbits)."""
+    n = plane.shape[-1]
+    n_pack = -(-n // 8)
+    x = torch.nn.functional.pad(plane.to(torch.int32), (0, n_pack * 8 - n))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=plane.device)
+    return (x.reshape(*x.shape[:-1], n_pack, 8) * weights).sum(-1).to(torch.uint8)
+
+
+def pack_wire_records(rec: BurstRecords, fftlen: int) -> WireRecords:
+    """Device-side compaction of BurstRecords (leading dims kept).
+
+    Resolves each burst's AFC chunk to a frequency, packs the bit plane
+    8x and replaces the bit_valid plane by its (first, count) run
+    (lossless: every demod mode's valid mask is a contiguous run)."""
+    n_chunks = rec.freq_est.shape[-1]
+    chunk = (rec.position.to(torch.int64) // fftlen).clamp(0, n_chunks - 1)
+    bv = rec.bit_valid.to(torch.int32)
+    meta_i = torch.stack([
+        rec.position.to(torch.int32),
+        rec.win_start.to(torch.int32),
+        rec.valid.to(torch.int32),
+        rec.n_detected[..., None].expand(rec.position.shape).to(torch.int32),
+        torch.argmax(bv, dim=-1).to(torch.int32),  # run first (0 if none)
+        bv.sum(-1, dtype=torch.int32),             # run count
+    ], dim=-1)
+    meta_f = torch.stack([rec.mag, rec.freq_est.gather(-1, chunk), rec.rssi], dim=-1)
+    return WireRecords(meta_i, meta_f.to(torch.float32), pack_bits(rec.bits)[..., None, :])
+
+
+def le4_bytes(x_i32: torch.Tensor) -> torch.Tensor:
+    """int32 -> 4 little-endian uint8 bytes along a new minor axis
+    (arithmetic shifts: exact two's-complement bytes)."""
+    return torch.stack([(x_i32 >> s) & 255 for s in (0, 8, 16, 24)], dim=-1).to(torch.uint8)
+
+
+def _le2_bytes(x_i32: torch.Tensor) -> torch.Tensor:
+    return torch.stack([x_i32 & 255, (x_i32 >> 8) & 255], dim=-1).to(torch.uint8)
+
+
+def _f32_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def pack_wire_flat(rec: BurstRecords, fftlen: int) -> torch.Tensor:
+    """Every lane in ONE uint8 buffer: [meta_i as le-i32 bytes][meta_f as
+    le-f32 bytes][bits plane]."""
+    w = pack_wire_records(rec, fftlen)
+    return torch.cat([
+        le4_bytes(w.meta_i).reshape(-1),
+        le4_bytes(_f32_bits(w.meta_f)).reshape(-1),
+        w.packed.reshape(-1),
+    ])
+
+
+def _bit_valid_plane(meta_i: np.ndarray, n_pack: int) -> np.ndarray:
+    C, B, K = meta_i.shape[:3]
+    first = meta_i[..., 4:5]
+    count = meta_i[..., 5:6]
+    idx = np.arange(n_pack * 8, dtype=np.int32)
+    mask = (idx >= first) & (idx < first + count)
+    return np.packbits(mask, axis=-1).reshape(C, B, K, 1, n_pack)
+
+
+def unpack_wire_flat(buf: np.ndarray, C: int, B: int, K: int, n_pack: int) -> WireRecords:
+    """Host inverse of `pack_wire_flat`; rebuilds the bit_valid plane."""
+    buf = np.asarray(buf, dtype=np.uint8)
+    ni = C * B * K * 6 * 4
+    nf = C * B * K * 3 * 4
+    meta_i = np.frombuffer(buf[:ni].tobytes(), "<i4").reshape(C, B, K, 6)
+    meta_f = np.frombuffer(buf[ni: ni + nf].tobytes(), "<f4").reshape(C, B, K, 3)
+    bits = buf[ni + nf:].reshape(C, B, K, 1, n_pack)
+    return WireRecords(meta_i, meta_f,
+                       np.concatenate([bits, _bit_valid_plane(meta_i, n_pack)], axis=-2))
+
+
+def pack_wire_compact(rec: BurstRecords, fftlen: int, l_max: int) -> torch.Tensor:
+    """Valid-lane-compacted device-to-host buffer.
+
+    Valid lanes come first in ascending lane order (top-k over the
+    distinct keys valid*2N - lane), then `l_max` of them are gathered.
+    Per-lane row: pos i32, win_start i32, bit_valid run (first u16,
+    count u16), [mag, freq, rssi] f32, packed bits.  Layout (little-endian):
+      [header: total_valid, l_max, n_lanes, row_bytes — 4x i32]
+      [n_detected (C*B) i32][n_valid (C*B) i32]
+      [directory (l_max) i32 flat lane ids][rows (l_max, row_bytes) u8]
+    """
+    w = pack_wire_records(rec, fftlen)
+    C, B, K = w.meta_i.shape[:3]
+    n_lanes = C * B * K
+    n_pack = w.packed.shape[-1]
+    l_max = min(int(l_max), n_lanes)
+    row_bytes = 24 + n_pack
+    mi = w.meta_i.reshape(n_lanes, 6)
+    mf = _f32_bits(w.meta_f.reshape(n_lanes, 3))
+    rows = torch.cat([
+        le4_bytes(mi[:, 0]),
+        le4_bytes(mi[:, 1]),
+        _le2_bytes(mi[:, 4]),
+        _le2_bytes(mi[:, 5]),
+        le4_bytes(mf).reshape(n_lanes, 12),
+        w.packed.reshape(n_lanes, n_pack),
+    ], dim=1)
+    valid = mi[:, 2]
+    key = valid * (2 * n_lanes) - torch.arange(n_lanes, dtype=torch.int32, device=valid.device)
+    idx = torch.topk(key, l_max, sorted=True).indices
+    sel = rows[idx]
+    n_valid_blk = w.meta_i[..., 2].reshape(C * B, K).sum(-1, dtype=torch.int32)
+    header = torch.cat([
+        valid.sum(dtype=torch.int32).reshape(1),
+        torch.tensor([l_max, n_lanes, row_bytes], dtype=torch.int32, device=valid.device),
+    ])
+    n_det = rec.n_detected.reshape(C * B).to(torch.int32)
+    return torch.cat([
+        le4_bytes(header).reshape(-1),
+        le4_bytes(n_det).reshape(-1),
+        le4_bytes(n_valid_blk).reshape(-1),
+        le4_bytes(idx.to(torch.int32)).reshape(-1),
+        sel.reshape(-1),
+    ])
+
+
+def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
+                        n_pack: int) -> tuple[WireRecords, list]:
+    """Host inverse of `pack_wire_compact`.
+
+    Scatters the shipped lanes back into the dense (C, B, K) layout
+    (invalid lanes zero) and returns (records, dropped): `dropped` lists
+    (channel, block, n_detected) for blocks whose valid lanes did not
+    fit the directory."""
+    buf = np.asarray(buf, dtype=np.uint8)
+    total_valid, l_max, n_lanes, row_bytes = (
+        int(v) for v in np.frombuffer(buf[:16].tobytes(), "<i4"))
+    if n_lanes != C * B * K or row_bytes != 24 + n_pack:
+        raise ValueError(
+            f"compact wire geometry mismatch: buffer says {n_lanes} lanes / "
+            f"{row_bytes} B rows, receiver expects {C * B * K} / {24 + n_pack}")
+    off = 16
+    n_det = np.frombuffer(buf[off: off + 4 * C * B].tobytes(), "<i4").reshape(C, B)
+    off += 4 * C * B
+    n_valid_blk = np.frombuffer(buf[off: off + 4 * C * B].tobytes(), "<i4").reshape(C, B)
+    off += 4 * C * B
+    dirs = np.frombuffer(buf[off: off + 4 * l_max].tobytes(), "<i4")
+    off += 4 * l_max
+    rows = buf[off: off + l_max * row_bytes].reshape(l_max, row_bytes)
+
+    nv = min(total_valid, l_max)
+    d, r = dirs[:nv], rows[:nv]
+    meta_i = np.zeros((C * B * K, 6), np.int32)
+    meta_f = np.zeros((C * B * K, 3), np.float32)
+    bits = np.zeros((C * B * K, n_pack), np.uint8)
+    meta_i[d, 0] = np.frombuffer(r[:, 0:4].tobytes(), "<i4")
+    meta_i[d, 1] = np.frombuffer(r[:, 4:8].tobytes(), "<i4")
+    meta_i[d, 2] = 1
+    meta_i[d, 4] = np.frombuffer(r[:, 8:10].tobytes(), "<u2")
+    meta_i[d, 5] = np.frombuffer(r[:, 10:12].tobytes(), "<u2")
+    meta_f[d] = np.frombuffer(r[:, 12:24].tobytes(), "<f4").reshape(nv, 3)
+    bits[d] = r[:, 24: 24 + n_pack]
+    meta_i = meta_i.reshape(C, B, K, 6)
+    meta_i[..., 3] = n_det[..., None]
+    packed = np.concatenate(
+        [bits.reshape(C, B, K, 1, n_pack), _bit_valid_plane(meta_i, n_pack)], axis=-2)
+    dropped = []
+    if total_valid > l_max:
+        got = meta_i[..., 2].sum(axis=-1)
+        for c, b in zip(*np.nonzero(got < n_valid_blk)):
+            dropped.append((int(c), int(b), int(max(n_det[c, b], n_valid_blk[c, b]))))
+    return WireRecords(meta_i, meta_f.reshape(C, B, K, 3), packed), dropped
+
+
+class BurstTableOverflow(RuntimeError):
+    """A block detected more bursts than its table or the lane directory
+    holds, and the host-side recovery that would re-demodulate it is not
+    ported yet (ROADMAP A.6)."""
+
+
+class WidebandReceiver:
+    """Streaming cr1 wire receiver on one device (see the module docstring)."""
+
+    def __init__(self, cfg: WidebandConfig = WidebandConfig(), n_in: int | None = None,
+                 *, device="cuda", constants: ReceiverConstants | None = None):
+        if cfg.deframer.max_length_bytes > cfg.demod.max_frame_bytes:
+            raise ValueError(
+                f"deframer.max_length_bytes={cfg.deframer.max_length_bytes} exceeds "
+                f"the demod window's frame capacity ({cfg.demod.max_frame_bytes} "
+                f"bytes at burst_len={cfg.demod.burst_len}): the extraction window "
+                f"would truncate long frames")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.n_in = aligned_n_in(cfg, n_in)
+        self.n_chan, self.n_blocks, self.core_len = wideband_geometry(cfg, self.n_in)
+        self.constants = default_constants(cfg) if constants is None else constants
+        taps = self.constants.taps
+        if not wire_channelizer_supported("cr1", taps.size, cfg.decimation,
+                                          cfg.offsets_hz, cfg.input_rate, self.n_in):
+            raise NotImplementedError(
+                f"the cr1 wire channelizer does not cover this geometry "
+                f"(offsets {cfg.offsets_hz} at {cfg.input_rate}); the float "
+                f"channelizer it would need is ROADMAP A.10")
+        self.channelizer = WireChannelizer(taps, cfg.decimation, cfg.offsets_hz,
+                                           cfg.input_rate, self.n_in, device=self.device)
+        self.demod_cfg = _demod_cfg(cfg)
+        self.demod = BurstDemod(
+            self.demod_cfg, cfg.block_len, self.core_len,
+            preamble=self.constants.preamble, interp_bank=self.constants.interp_bank,
+            ff_delta=self.constants.ff_delta, device=self.device)
+        # Raw samples consumed per call (stream advance).
+        self.step_raw = self.n_blocks * self.core_len * cfg.decimation
+        self._pos = 0  # absolute raw index of the next call's first sample
+        self._dedupers = [PacketDeduper() for _ in cfg.offsets_hz]
+        self.overflow_blocks = 0
+        self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
+
+    @property
+    def wire_overlap_samples(self) -> int:
+        """Raw samples each wire call must present again from the
+        previous call (the framing halo at the input rate)."""
+        return self.n_in - self.step_raw
+
+    # -- device half -----------------------------------------------------
+
+    def demod_channels(self, chans: torch.Tensor) -> BurstRecords:
+        """(n_chan, n48) channels -> records with leading (n_chan, n_blocks):
+        overlap-save framing (a strided view) and one batched demod."""
+        cfg = self.cfg
+        blocks = chans.unfold(-1, cfg.block_len, self.core_len)[:, : self.n_blocks]
+        rec = self.demod(blocks.reshape(self.n_chan * self.n_blocks, cfg.block_len))
+        lead = (self.n_chan, self.n_blocks)
+        return BurstRecords(*(t.reshape(*lead, *t.shape[1:]) for t in rec))
+
+    def wire_records(self, raw: torch.Tensor, phase0s: torch.Tensor) -> BurstRecords:
+        """Device program up to the burst table (K1, then the demod)."""
+        return self.demod_channels(self.channelizer(raw, phase0s))
+
+    def pack_records(self, rec: BurstRecords) -> torch.Tensor:
+        """The step's device-to-host buffer (compact or flat layout)."""
+        fftlen = self.cfg.demod.fftlen
+        if self.cfg.compact_lanes:
+            return pack_wire_compact(rec, fftlen, self.cfg.compact_lanes)
+        return pack_wire_flat(rec, fftlen)
+
+    def stage_wire(self, raw_u8: np.ndarray, fmt: str = "cr1", pos: int | None = None):
+        """Copy one step's wire bytes to the device; returns a handle for
+        `dispatch_wire`.  `pos` overrides the stream position (absolute
+        raw index of the first sample) without advancing the counter."""
+        if fmt != "cr1":
+            raise NotImplementedError(
+                f"wire format {fmt!r} is not ported yet (ROADMAP A.9); the port ingests cr1")
+        want = cr1_wire_nbytes(self.n_in)
+        if raw_u8.size != want:
+            raise ValueError(f"cr1 wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
+        at = self._pos if pos is None else int(pos)
+        phase0s = np.stack(
+            [mixer_phase(off, self.cfg.input_rate, at) for off in self.cfg.offsets_hz])
+        host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
+        raw = host.to(self.device, non_blocking=True)
+        ph = torch.from_numpy(phase0s).to(self.device)
+        if pos is None:
+            self._pos += self.step_raw
+        return raw, ph, at, fmt, raw_u8
+
+    def dispatch_wire(self, staged):
+        """Enqueue the device program on a staged step; returns a handle
+        for `collect` (on a CUDA device the work runs asynchronously)."""
+        raw, ph, at, fmt, raw_u8 = staged
+        flat = self.pack_records(self.wire_records(raw, ph))
+        done = None
+        if flat.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(flat.device))
+        return flat, done, at // self.cfg.decimation, raw_u8, fmt, at
+
+    def submit_wire(self, raw_u8: np.ndarray, fmt: str = "cr1", pos: int | None = None):
+        """Stage + dispatch one n_in-sample wire step."""
+        return self.dispatch_wire(self.stage_wire(raw_u8, fmt, pos))
+
+    def fetch_wire(self, handle):
+        """Wait for a step's device result and copy it to the host; returns
+        the payload for `decode_fetched`."""
+        flat, _done, chan_start, raw_u8, fmt, at = handle
+        return flat.cpu().numpy(), chan_start, raw_u8, fmt, at
+
+    # -- host half -------------------------------------------------------
+
+    def decode_fetched(self, fetched) -> list:
+        """Host back half: unpack, check for overflow, deframe, dedup."""
+        flat_np, chan_start, _raw_u8, _fmt, _at = fetched
+        _, n_sym = burst_table_geometry(self.demod_cfg)
+        n_pack = -(-n_sym // 8)
+        K = self.demod_cfg.max_bursts_per_block
+        dropped: list = []
+        if self.cfg.compact_lanes:
+            rec_np, dropped = unpack_wire_compact(flat_np, self.n_chan, self.n_blocks, K, n_pack)
+        else:
+            rec_np = unpack_wire_flat(flat_np, self.n_chan, self.n_blocks, K, n_pack)
+        n_det = rec_np.meta_i[:, :, 0, 3]
+        over = [(int(c), int(b), int(n_det[c, b])) for c, b in zip(*np.nonzero(n_det > K))]
+        seen = {(c, b) for c, b, _ in over}
+        over.extend(x for x in dropped if (x[0], x[1]) not in seen)
+        self.overflow_blocks += len(over)
+        if over and self.cfg.overflow_recovery:
+            raise BurstTableOverflow(
+                f"blocks (channel, block, n_detected) {over} of the step at channel "
+                f"sample {chan_start} overflowed the burst table (K={K}) or the lane "
+                f"directory (compact_lanes={self.cfg.compact_lanes}); host-side "
+                f"recovery is not ported yet (ROADMAP A.6)")
+        if dropped:
+            log.warning("compact_lanes=%d dropped valid lanes in %d block(s) and "
+                        "overflow_recovery is off", self.cfg.compact_lanes, len(dropped))
+        packets = decode_wire_records(
+            rec_np, n_sym, chan_start, self.core_len,
+            designators=self.cfg.designators, dedupers=self._dedupers,
+            deframer=self.cfg.deframer, samples_per_symbol=self.cfg.sps)
+        if self.cfg.image_reject:
+            packets = suppress_image_ghosts(packets)
+        return packets
+
+    def collect(self, handle) -> list:
+        """Wait for a submitted step and decode its packets.
+
+        `collect_stats` accumulates exec_s (wait for the device result),
+        fetch_s (device-to-host copy) and host_s (the host back half)."""
+        t0 = time.perf_counter()
+        if handle[1] is not None:
+            handle[1].synchronize()
+        t1 = time.perf_counter()
+        fetched = self.fetch_wire(handle)
+        t2 = time.perf_counter()
+        packets = self.decode_fetched(fetched)
+        t3 = time.perf_counter()
+        st = self.collect_stats
+        st["exec_s"] += t1 - t0
+        st["fetch_s"] += t2 - t1
+        st["host_s"] += t3 - t2
+        st["steps"] += 1
+        return packets
+
+    def decode_wire(self, raw_u8: np.ndarray, fmt: str = "cr1") -> list:
+        """Decode one n_in-sample wire step (submit + collect)."""
+        return self.collect(self.submit_wire(raw_u8, fmt))
+
+    def reset_dedup(self) -> None:
+        """Forget dedup history (before re-decoding earlier positions)."""
+        self._dedupers = [PacketDeduper() for _ in self.cfg.offsets_hz]
+
+    def reset_collect_stats(self) -> None:
+        self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
+
+    # -- checkpoint / resume: the reference's state dict -----------------
+
+    def get_state(self) -> dict:
+        """Stream state as the reference's dict.  `buf` (the complex-IQ
+        path's sample buffer) is always empty here: the wire path keeps
+        no samples between calls."""
+        return {
+            "buf": np.zeros(0, np.complex64),
+            "pos": self._pos,
+            "dedup_recent": [list(d._recent) for d in self._dedupers],
+        }
+
+    def set_state(self, state: dict) -> None:
+        if np.size(state.get("buf", ())):
+            raise NotImplementedError(
+                "a buffered complex-IQ stream cannot resume on the wire path; "
+                "the port's complex-IQ receiver is ROADMAP A.10")
+        self._pos = int(state["pos"])
+        for d, recent in zip(self._dedupers, state["dedup_recent"]):
+            d._recent = list(recent)
