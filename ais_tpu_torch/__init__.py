@@ -8,24 +8,27 @@ version beside it in the same module: a wrapper runs that plain version
 only for a tensor on the CPU, and for a CUDA tensor launches the kernel
 or raises.
 
-What runs today (slice 1): cr1 wire bytes -> packets through
-`pipeline.wideband.WidebandReceiver.decode_wire(raw, "cr1")`.
+What runs today (slices 1 and 2): complex IQ or wire bytes of every
+format -> packets through `pipeline.wideband.WidebandReceiver`
+(`decode`, `flush`, `decode_wire(raw, fmt)`).
 
 Module map (port <- reference):
 
-=================================  =====================================
-ais_tpu_torch                      ais_tpu
-=================================  =====================================
-ops/convert.py (cr1)               ops/convert.py
-ops/fir.py                         ops/fir.py (mixer_phase, polyphase)
-ops/wire_channelizer.py (K1)       ops/pallas_fir.py (cr1 wire kernel)
-ops/framing.py, window.py, agc.py  the same names
-ops/freq.py, demod.py, interp.py   the same names
-ops/matched_filter.py (K2)         ops/pallas_corr.py
-sync/corr.py, sync/feedforward.py  the same names
-pipeline/receiver.py, host.py      the same names
-pipeline/wideband.py (cr1 wire)    pipeline/wideband.py
-=================================  =====================================
+====================================  ====================================
+ais_tpu_torch                         ais_tpu
+====================================  ====================================
+ops/convert.py                        ops/convert.py (decoders, host_bytes)
+ops/fir.py                            ops/fir.py (mixer_phase, polyphase)
+ops/channelizer.py (K5)               ops/pallas_fir.py (float kernel)
+ops/wire_channelizer.py (K1, K3, K4)  ops/pallas_fir.py (wire kernels)
+ops/probe.py (K6)                     tools/tpu_pallas_probe.py
+ops/framing.py, window.py, agc.py     the same names
+ops/freq.py, demod.py, interp.py      the same names
+ops/matched_filter.py (K2)            ops/pallas_corr.py
+sync/corr.py, sync/feedforward.py     the same names
+pipeline/receiver.py, host.py         the same names
+pipeline/wideband.py                  pipeline/wideband.py
+====================================  ====================================
 
 The jax-free leaf modules of the reference (`ais_tpu.core.params`,
 `ais_tpu.ops.firdes`, `ais_tpu.decode`, `ais_tpu.native`, `ais_tpu.tx`)

@@ -3,7 +3,8 @@
 Route: `nvcc` straight to a shared library with a plain C interface,
 loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
 The library is built at first use, keyed by a hash of the sources and
-flags, into `build/ais_tpu_torch/` beside the package.  Every C entry
+flags, into `build/ais_tpu_torch/` beside the package: one `nvcc -c`
+per source, all started together, then one link.  Every C entry
 point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.__call__` raises when that is not 0.
 
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ais_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -61,6 +62,40 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_and_link(out: Path) -> str:
+    """One `nvcc -c` a source, all at once, then `nvcc -shared`; returns
+    the compilers' output (ptxas's register and shared-memory lines)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
@@ -71,14 +106,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         log = ""
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, out)
+            log = _compile_and_link(out)
         _lib = ctypes.CDLL(str(out))
         _lib.ais_cuda_error_string.argtypes = [ctypes.c_int]
         _lib.ais_cuda_error_string.restype = ctypes.c_char_p
@@ -126,7 +154,25 @@ MATCHED_FILTER = Kernel(
     # x, conj taps, corr, mag2, batch, n, n_out, L, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 )
-KERNELS = (WIRE_CHANNELIZER_CR1, MATCHED_FILTER)
+_L = ctypes.c_longlong
+# csrc/channelizer.cu: in, carrier, taps, out, n_in, n_out, ntaps, decim,
+# q, n_chan, threads an output, stream.
+_CHANNELIZER_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]
+CHANNELIZER = Kernel("channelizer", "ais_channelizer_f32", _CHANNELIZER_ARGS)
+WIRE_CHANNELIZER_CI1 = Kernel("wire_channelizer_ci1", "ais_wire_channelizer_ci1",
+                              _CHANNELIZER_ARGS)
+WIRE_CHANNELIZER_CI2 = Kernel("wire_channelizer_ci2", "ais_wire_channelizer_ci2",
+                              _CHANNELIZER_ARGS)
+WIRE_CHANNELIZER_CI4 = Kernel("wire_channelizer_ci4", "ais_wire_channelizer_ci4",
+                              _CHANNELIZER_ARGS)
+PROBE = Kernel(
+    "probe",
+    "ais_probe",
+    # x, y, out, n, stream
+    [_P, _P, _P, _I, _P],
+)
+KERNELS = (WIRE_CHANNELIZER_CR1, MATCHED_FILTER, CHANNELIZER, WIRE_CHANNELIZER_CI1,
+           WIRE_CHANNELIZER_CI2, WIRE_CHANNELIZER_CI4, PROBE)
 
 
 def reset_launch_counts() -> None:

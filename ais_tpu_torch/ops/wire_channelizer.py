@@ -1,8 +1,9 @@
-"""K1: the cr1 wire channelizer (bytes -> +-1 -> IF-folded mix -> FIR).
+"""The wire channelizers: packed wire bytes -> decode -> mix -> FIR.
 
-Counterpart of the cr1 wire kernel in `ais_tpu/ops/pallas_fir.py`
-(`_pallas_wire_channelizer_cr1`).  For each channel c it computes, from
-the definition,
+K1, the cr1 wire channelizer (bytes -> +-1 -> IF-folded mix -> FIR), is
+the counterpart of `_pallas_wire_channelizer_cr1` in
+`ais_tpu/ops/pallas_fir.py`.  For each channel c it computes, from the
+definition,
 
     y[c, m] = sum_{k < ntaps} h[k] * s[m*D + k] * car_c[m*D + k]
 
@@ -23,34 +24,45 @@ Two implementations of one contract:
     `wire_channelizer_cr1` for a CUDA tensor.
 
 `wire_channelizer_cr1` takes the plain version only for a CPU tensor.
+
+K3 (ci1; cd1 after `ci1_from_bytes_cd1`) and K4 (ci2, ci4) are the
+counterparts of `_pallas_wire_channelizer_ci1` and of
+`pallas_wire_channelizer` for ci2/ci4: y as in K5 (ops/channelizer.py)
+on the decoded complex sample, with the baseband carrier.  Their CUDA
+kernels share K5's template in `csrc/channelizer.cu` and differ only in
+the decode prologue; their plain versions are the port's decoder
+(ops/convert.py) followed by K5's plain version.  `wire_channelizer`
+dispatches on the format and the tensor's device.
 """
 
 from __future__ import annotations
 
-from fractions import Fraction
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ais_tpu_torch import _build
-from ais_tpu_torch.ops.convert import unpack_bits_pm1
+from ais_tpu_torch.ops import channelizer as _k5
+from ais_tpu_torch.ops.channelizer import (
+    Channelizer,
+    channelizer_supported,
+    freq_xlating_polyphase_plain,
+    launch,
+    rotate_carrier,
+)
+from ais_tpu_torch.ops.channelizer import n_out as _n_out
+from ais_tpu_torch.ops.convert import (
+    iq_from_bytes_ci1,
+    iq_from_bytes_ci2,
+    iq_from_bytes_ci4,
+    unpack_bits_pm1,
+)
 from ais_tpu_torch.ops.fir import fir_polyphase
 
 # The kernel stages the whole carrier table in shared memory.
 MAX_CARRIER_PERIOD = 2048
 MAX_CHANNELS = 4
-
-
-def carrier_period_samples(offset_hz: float, sample_rate: float,
-                           max_period: int = 1 << 14) -> int | None:
-    """Smallest q with offset/fs = p/q exactly (None if > max_period)."""
-    if offset_hz == 0:
-        return 1
-    fr = Fraction(offset_hz / sample_rate).limit_denominator(max_period)
-    if fr == 0:
-        return None
-    err = abs(offset_hz / sample_rate - float(fr))
-    return int(fr.denominator) if err < 1e-12 else None
 
 
 def _if_offsets(offsets_hz, sample_rate: float) -> tuple:
@@ -60,59 +72,60 @@ def _if_offsets(offsets_hz, sample_rate: float) -> tuple:
 
 def carrier_table_period(offsets_hz, sample_rate: float) -> int | None:
     """Common period of the IF-folded carriers (None if not periodic)."""
-    periods = [carrier_period_samples(o, sample_rate)
-               for o in _if_offsets(offsets_hz, sample_rate)]
-    if any(p is None for p in periods):
-        return None
-    return int(np.lcm.reduce(periods))
+    return _k5.carrier_table_period(_if_offsets(offsets_hz, sample_rate), sample_rate)
+
+
+class PackedFormat(NamedTuple):
+    samples_per_byte: int
+    decode: Callable          # (raw_u8,) -> (n,) complex64, ops/convert.py
+    kernel: _build.Kernel     # its entry point in csrc/channelizer.cu
+
+
+# The formats of K3 and K4.
+PACKED = {
+    "ci1": PackedFormat(4, iq_from_bytes_ci1, _build.WIRE_CHANNELIZER_CI1),
+    "ci2": PackedFormat(2, iq_from_bytes_ci2, _build.WIRE_CHANNELIZER_CI2),
+    "ci4": PackedFormat(1, iq_from_bytes_ci4, _build.WIRE_CHANNELIZER_CI4),
+}
 
 
 def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,
                                sample_rate: float, n_in: int | None = None) -> bool:
-    """True when K1 handles this (format, geometry).
+    """True when a wire kernel handles this (format, geometry).
 
-    The kernel needs: cr1; at most MAX_CHANNELS channels; periodic
-    IF-folded carriers with a period that fits its shared-memory table;
-    and, when `n_in` is given, whole bytes and whole decimation rows.
-    It has no tile constraints of its own (the TPU kernel's n_in % 200
-    and 128-lane rules come from Mosaic, not from the contract).
+    cr1 (K1) needs at most MAX_CHANNELS channels; periodic IF-folded
+    carriers with a period that fits its shared-memory table; and, when
+    `n_in` is given, whole bytes and whole decimation rows.  ci1, ci2
+    and ci4 (K3, K4) need what K5 needs (`channelizer_supported`) and,
+    with `n_in`, whole bytes.  For ci1, ci2 and ci4, wherever
+    `ais_tpu/ops/pallas_fir.py:wire_channelizer_supported` accepts, so
+    does this; it accepts more: the TPU kernels' n_in % 200 and
+    128-lane rules, ci1's decim % 4 == 2 and ci2's even decim come from
+    Mosaic and the MXU, not from the contract.  For cr1 it accepts less
+    where the IF-folded period exceeds K1's table (2048, e.g. offsets of
+    +-1 kHz at 2.4 Msps): the receiver then decodes cr1 to complex
+    samples and runs K5.
     """
-    if fmt != "cr1" or not 1 <= len(offsets_hz) <= MAX_CHANNELS:
-        return False
-    q = carrier_table_period(offsets_hz, sample_rate)
-    if q is None or q > MAX_CARRIER_PERIOD:
-        return False
-    if n_in is not None and (n_in % 8 or n_in % decim or n_in < ntaps):
-        return False
-    return True
+    if fmt == "cr1":
+        if not 1 <= len(offsets_hz) <= MAX_CHANNELS:
+            return False
+        q = carrier_table_period(offsets_hz, sample_rate)
+        if q is None or q > MAX_CARRIER_PERIOD:
+            return False
+        if n_in is not None and (n_in % 8 or n_in % decim or n_in < ntaps):
+            return False
+        return True
+    if fmt in PACKED:
+        if n_in is not None and n_in % PACKED[fmt].samples_per_byte:
+            return False
+        return channelizer_supported(ntaps, decim, offsets_hz, sample_rate, n_in)
+    return False
 
 
 def carrier_table(offsets_hz, sample_rate: float) -> np.ndarray:
     """(n_chan, q, 2) float32: entry [c, i] is e^{-j2pi f_c i / fs} with
     f_c = off_c + fs/4; float64 phase on the host."""
-    q = carrier_table_period(offsets_hz, sample_rate)
-    if q is None:
-        raise ValueError(f"offsets {offsets_hz} give no periodic carrier at {sample_rate}")
-    n = np.arange(q, dtype=np.float64)
-    out = np.empty((len(offsets_hz), q, 2), np.float32)
-    for c, f in enumerate(_if_offsets(offsets_hz, sample_rate)):
-        ph = np.remainder(-2.0 * np.pi * (f / sample_rate) * n, 2 * np.pi)
-        cplx = np.exp(1j * ph)
-        out[c, :, 0] = cplx.real.astype(np.float32)
-        out[c, :, 1] = cplx.imag.astype(np.float32)
-    return out
-
-
-def rotate_carrier(car: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
-    """Rotate the (n_chan, q, 2) table by the per-channel start phases."""
-    rot_r = torch.cos(phase0s)[:, None]
-    rot_i = torch.sin(phase0s)[:, None]
-    cr, ci = car[..., 0], car[..., 1]
-    return torch.stack([cr * rot_r - ci * rot_i, cr * rot_i + ci * rot_r], dim=-1)
-
-
-def _n_out(n_in: int, ntaps: int, decim: int) -> int:
-    return (n_in - ntaps) // decim + 1
+    return _k5.carrier_table(_if_offsets(offsets_hz, sample_rate), sample_rate)
 
 
 def wire_channelizer_cr1_plain(raw_u8: torch.Tensor, car: torch.Tensor,
@@ -175,6 +188,29 @@ def wire_channelizer_cr1(raw_u8: torch.Tensor, car: torch.Tensor,
     raise NotImplementedError(f"no wire channelizer for device {raw_u8.device}")
 
 
+def wire_channelizer_packed_plain(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor,
+                                  taps: torch.Tensor, decim: int) -> torch.Tensor:
+    """Plain PyTorch K3/K4: decode `fmt`'s bytes, then K5's plain version.
+    `car` is the rotated baseband (n_chan, q, 2) carrier table."""
+    return freq_xlating_polyphase_plain(PACKED[fmt].decode(raw_u8), car, taps, decim)
+
+
+def wire_channelizer_packed(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor,
+                            taps: torch.Tensor, *, decim: int, n_in: int) -> torch.Tensor:
+    """K3 (fmt "ci1") or K4 ("ci2", "ci4") on the tensor's device: the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Returns (n_chan, n_out) complex64."""
+    spec = PACKED[fmt]
+    if raw_u8.dtype != torch.uint8 or n_in % spec.samples_per_byte \
+            or raw_u8.numel() != n_in // spec.samples_per_byte:
+        raise ValueError(f"{fmt} wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
+    if raw_u8.device.type == "cuda":
+        return launch(spec.kernel, raw_u8, car, taps, decim, n_in)
+    if raw_u8.device.type == "cpu":
+        return wire_channelizer_packed_plain(fmt, raw_u8, car, taps, decim)
+    raise NotImplementedError(f"no wire channelizer for device {raw_u8.device}")
+
+
 class WireChannelizer(torch.nn.Module):
     """cr1 wire bytes -> (n_chan, n_out) channels; owns the taps and the
     unrotated carrier table."""
@@ -200,3 +236,22 @@ class WireChannelizer(torch.nn.Module):
     def forward(self, raw_u8: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
         car = rotate_carrier(self.carrier, phase0s)
         return wire_channelizer_cr1(raw_u8, car, self.taps, decim=self.decim, n_in=self.n_in)
+
+
+class PackedWireChannelizer(Channelizer):
+    """ci1 / ci2 / ci4 wire bytes -> (n_chan, n_out) channels (K3, K4);
+    owns the taps and the baseband carrier table, as K5's module does."""
+
+    def __init__(self, fmt: str, taps, decim: int, offsets_hz, sample_rate: float,
+                 n_in: int, device=None):
+        if fmt not in PACKED:
+            raise ValueError(f"no packed wire channelizer for {fmt!r}")
+        if n_in % PACKED[fmt].samples_per_byte:
+            raise ValueError(f"n_in={n_in} is not whole {fmt} bytes")
+        super().__init__(taps, decim, offsets_hz, sample_rate, n_in, device=device)
+        self.fmt = fmt
+
+    def forward(self, raw_u8: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
+        car = rotate_carrier(self.carrier, phase0s)
+        return wire_channelizer_packed(self.fmt, raw_u8, car, self.taps,
+                                       decim=self.decim, n_in=self.n_in)

@@ -1,6 +1,8 @@
-"""Host back half: wire records -> HDLC frames -> deduplicated packets.
+"""Host back half: burst records -> HDLC frames -> deduplicated packets.
 
-Port of the wire-path part of `ais_tpu/pipeline/host.py`, in numpy (it
+Port of `ais_tpu/pipeline/host.py` (the wire path's
+`decode_wire_records` and the complex-IQ path's per-block
+`decode_block_records`), in numpy (it
 runs on the host after the device-to-host fetch, and the reference's
 module cannot be imported without jax).  All valid bursts of a fetch
 deframe in one native call (`ais_tpu.native.hdlc_deframe_packed_batch`)
@@ -176,6 +178,39 @@ def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
             row = flat[lane]
             emit(int(lane), _deframe_burst(row[0][row[1].astype(bool)], deframer))
     packets.sort(key=lambda p: p.abs_sample)
+    return packets
+
+
+def decode_block_records(records, block_start_sample: int, designator: str = "A",
+                         deframer: DeframerConfig = DeframerConfig(),
+                         deduper: PacketDeduper | None = None, fftlen: int = 1024,
+                         samples_per_symbol: float = 5.0) -> list:
+    """Deframe one block's BurstRecords (host numpy copies) into packets.
+
+    The complex-IQ path's host half: each valid burst's valid bits go
+    through the deframer on their own, in burst order."""
+    valid = np.asarray(records.valid)
+    n_detected = int(np.asarray(records.n_detected))
+    if n_detected > valid.size:
+        log.warning(
+            "burst table overflow: %d peaks detected in block at sample %d "
+            "but max_bursts_per_block=%d", n_detected, block_start_sample, valid.size)
+    positions = np.asarray(records.position)
+    mags = np.asarray(records.mag)
+    rssis = np.asarray(records.rssi)
+    bits = np.asarray(records.bits)
+    bit_valid = np.asarray(records.bit_valid).astype(bool)
+    freq_est = np.asarray(records.freq_est)
+    win_starts = np.asarray(records.win_start)
+    packets: list[DecodedPacket] = []
+    for k in np.nonzero(valid)[0]:
+        frames = _deframe_burst(bits[k][bit_valid[k]], deframer)
+        chunk = min(int(positions[k]) // fftlen, freq_est.size - 1) if freq_est.size else 0
+        _emit_packets(
+            frames, int(win_starts[k]), block_start_sample, float(mags[k]),
+            float(freq_est[chunk]) if freq_est.size else 0.0, designator, deduper,
+            samples_per_symbol, packets, rssi=float(rssis[k]),
+        )
     return packets
 
 

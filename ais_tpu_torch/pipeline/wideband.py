@@ -1,22 +1,34 @@
-"""Wideband dual-channel receiver: cr1 wire bytes -> AIS packets.
+"""Wideband dual-channel receiver: complex IQ or wire bytes -> AIS packets.
 
-Port of the wire API of `ais_tpu/pipeline/wideband.py` for
-`fmt="cr1"`.  One step takes the wire bytes of n_in samples at 2.4 Msps
-and runs, on the receiver's device:
+Port of `ais_tpu/pipeline/wideband.py`.  Two entry paths, one device
+program after the channelizer:
 
-  K1 wire channelizer (bytes -> both channels at 48 ksps)
+  complex IQ (`process` / `decode` / `flush`, `device_step`): the
+    receiver buffers complex64 samples and runs each n_in-sample step
+    through K5, the float channelizer;
+  wire bytes (`stage_wire` / `submit_wire` / `decode_wire`), per format:
+    ci16, ci8  decode on the device, then K5
+    ci4, ci2   K4 (decode inside the channelizer kernel)
+    ci1        K3; cd1 is undone to ci1 on the device first
+    cr1        K1 (the IF-folded 1-bit channelizer)
+
+then, on the device, both channels at 48 ksps
   -> overlap-save framing into demod blocks
   -> BurstDemod (AGC, AFC, K2 matched filter, detection, timing, bits)
-  -> record pack (`pack_wire_compact`, or `pack_wire_flat` with
-     compact_lanes=0) into ONE uint8 buffer
 
-then, on the host, unpacks the buffer, deframes HDLC (native batch
-call), deduplicates and drops I/Q-image ghosts.
+The wire path packs the records into ONE uint8 buffer
+(`pack_wire_compact`, or `pack_wire_flat` with compact_lanes=0) and the
+host unpacks it and deframes every burst in one native call; the
+complex path fetches the burst records and deframes block by block
+(`decode_block_records`).  Both deduplicate and drop I/Q-image ghosts.
+Each channelizer is built at first use, so a geometry only the path in
+use must cover.
 
 Stream contract (as in the reference): each call covers n_in samples but
-advances the stream by step_raw < n_in; the last n_in - step_raw samples
-(`wire_overlap_samples`) are the framing halo and must be presented
-again at the start of the next call.
+advances the stream by step_raw < n_in.  The wire path's last n_in -
+step_raw samples (`wire_overlap_samples`) are the framing halo and must
+be presented again at the start of the next call; the complex path
+keeps them in its buffer.
 """
 
 from __future__ import annotations
@@ -31,12 +43,26 @@ import numpy as np
 import torch
 
 from ais_tpu.core.params import AIS_BIT_RATE, DeframerConfig, DemodConfig
-from ais_tpu_torch.ops.convert import cr1_wire_nbytes
+from ais_tpu_torch.ops.channelizer import Channelizer
+from ais_tpu_torch.ops.convert import (
+    cd1_wire_nbytes,
+    ci1_from_bytes_cd1,
+    cr1_wire_nbytes,
+    iq_from_bytes_ci8,
+    iq_from_bytes_ci16,
+    iq_from_bytes_cr1,
+)
 from ais_tpu_torch.ops.fir import mixer_phase
 from ais_tpu_torch.ops.interp import NSTEPS, NTAPS
-from ais_tpu_torch.ops.wire_channelizer import WireChannelizer, wire_channelizer_supported
+from ais_tpu_torch.ops.wire_channelizer import (
+    PACKED,
+    PackedWireChannelizer,
+    WireChannelizer,
+    wire_channelizer_supported,
+)
 from ais_tpu_torch.pipeline.host import (
     PacketDeduper,
+    decode_block_records,
     decode_wire_records,
     suppress_image_ghosts,
 )
@@ -170,6 +196,24 @@ def aligned_n_in(cfg: WidebandConfig, n_in: int | None = None) -> int:
         n_in = (n48 - 1) * cfg.decimation + num_taps(cfg)
     align = int(np.lcm(cfg.decimation, 8))
     return -(-n_in // align) * align
+
+
+# Wire bytes per sample (num, den) of the formats without padding.
+_WIRE_RATIO = {"ci16": (4, 1), "ci8": (2, 1), "ci4": (1, 1), "ci2": (1, 2), "ci1": (1, 4)}
+WIRE_FORMATS = (*_WIRE_RATIO, "cd1", "cr1")
+
+
+def wire_nbytes(fmt: str, n_in: int) -> int:
+    """Wire bytes of one n_in-sample step in `fmt` (the reference's
+    `stage_wire` table)."""
+    if fmt == "cd1":
+        return cd1_wire_nbytes(n_in)
+    if fmt == "cr1":
+        return cr1_wire_nbytes(n_in)
+    if fmt not in _WIRE_RATIO:
+        raise ValueError(f"unsupported wire format {fmt!r}; the receiver takes {WIRE_FORMATS}")
+    num, den = _WIRE_RATIO[fmt]
+    return n_in * num // den
 
 
 def pack_bits(plane: torch.Tensor) -> torch.Tensor:
@@ -350,7 +394,7 @@ class BurstTableOverflow(RuntimeError):
 
 
 class WidebandReceiver:
-    """Streaming cr1 wire receiver on one device (see the module docstring)."""
+    """Streaming receiver on one device (see the module docstring)."""
 
     def __init__(self, cfg: WidebandConfig = WidebandConfig(), n_in: int | None = None,
                  *, device="cuda", constants: ReceiverConstants | None = None):
@@ -365,15 +409,9 @@ class WidebandReceiver:
         self.n_in = aligned_n_in(cfg, n_in)
         self.n_chan, self.n_blocks, self.core_len = wideband_geometry(cfg, self.n_in)
         self.constants = default_constants(cfg) if constants is None else constants
-        taps = self.constants.taps
-        if not wire_channelizer_supported("cr1", taps.size, cfg.decimation,
-                                          cfg.offsets_hz, cfg.input_rate, self.n_in):
-            raise NotImplementedError(
-                f"the cr1 wire channelizer does not cover this geometry "
-                f"(offsets {cfg.offsets_hz} at {cfg.input_rate}); the float "
-                f"channelizer it would need is ROADMAP A.10")
-        self.channelizer = WireChannelizer(taps, cfg.decimation, cfg.offsets_hz,
-                                           cfg.input_rate, self.n_in, device=self.device)
+        # Channelizer modules by kind ("iq" = K5, "cr1" = K1, "ci1" = K3,
+        # "ci2"/"ci4" = K4), each built at first use.
+        self._channelizers: dict = {}
         self.demod_cfg = _demod_cfg(cfg)
         self.demod = BurstDemod(
             self.demod_cfg, cfg.block_len, self.core_len,
@@ -381,7 +419,8 @@ class WidebandReceiver:
             ff_delta=self.constants.ff_delta, device=self.device)
         # Raw samples consumed per call (stream advance).
         self.step_raw = self.n_blocks * self.core_len * cfg.decimation
-        self._pos = 0  # absolute raw index of the next call's first sample
+        self._buf = np.zeros(0, np.complex64)  # complex path: samples not yet consumed
+        self._pos = 0  # absolute raw index of the next call's first sample (= _buf[0])
         self._dedupers = [PacketDeduper() for _ in cfg.offsets_hz]
         self.overflow_blocks = 0
         self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
@@ -394,6 +433,43 @@ class WidebandReceiver:
 
     # -- device half -----------------------------------------------------
 
+    def channelizer_for(self, kind: str) -> torch.nn.Module:
+        """The channelizer module of `kind` ("iq": K5 on complex samples;
+        "cr1": K1; "ci1": K3; "ci2", "ci4": K4), built on first use.
+        Raises NotImplementedError when no kernel covers the geometry."""
+        mod = self._channelizers.get(kind)
+        if mod is None:
+            cfg = self.cfg
+            args = (self.constants.taps, cfg.decimation, cfg.offsets_hz, cfg.input_rate,
+                    self.n_in)
+            if kind == "iq":
+                mod = Channelizer(*args, device=self.device)
+            elif kind == "cr1":
+                mod = WireChannelizer(*args, device=self.device)
+            else:
+                mod = PackedWireChannelizer(kind, *args, device=self.device)
+            self._channelizers[kind] = mod
+        return mod
+
+    def _wire_route(self, fmt: str):
+        """(channelizer kind, device pre-decode or None) for a wire format."""
+        if fmt == "ci16":
+            return "iq", iq_from_bytes_ci16
+        if fmt == "ci8":
+            return "iq", iq_from_bytes_ci8
+        if fmt in PACKED:
+            return fmt, None
+        if fmt == "cd1":
+            return "ci1", functools.partial(ci1_from_bytes_cd1, n_samples=self.n_in)
+        if fmt == "cr1":
+            cfg = self.cfg
+            if wire_channelizer_supported("cr1", self.constants.taps.size, cfg.decimation,
+                                          cfg.offsets_hz, cfg.input_rate, self.n_in):
+                return "cr1", None
+            # A geometry K1 does not take: decode to complex, then K5.
+            return "iq", functools.partial(iq_from_bytes_cr1, n_samples=self.n_in)
+        raise ValueError(f"unsupported wire format {fmt!r}; the receiver takes {WIRE_FORMATS}")
+
     def demod_channels(self, chans: torch.Tensor) -> BurstRecords:
         """(n_chan, n48) channels -> records with leading (n_chan, n_blocks):
         overlap-save framing (a strided view) and one batched demod."""
@@ -403,9 +479,20 @@ class WidebandReceiver:
         lead = (self.n_chan, self.n_blocks)
         return BurstRecords(*(t.reshape(*lead, *t.shape[1:]) for t in rec))
 
-    def wire_records(self, raw: torch.Tensor, phase0s: torch.Tensor) -> BurstRecords:
-        """Device program up to the burst table (K1, then the demod)."""
-        return self.demod_channels(self.channelizer(raw, phase0s))
+    def wire_channels(self, raw: torch.Tensor, phase0s: torch.Tensor,
+                      fmt: str = "ci8") -> torch.Tensor:
+        """One step's wire bytes (on the device) -> (n_chan, n48) channels."""
+        kind, pre = self._wire_route(fmt)
+        return self.channelizer_for(kind)(raw if pre is None else pre(raw), phase0s)
+
+    def wire_records(self, raw: torch.Tensor, phase0s: torch.Tensor,
+                     fmt: str = "ci8") -> BurstRecords:
+        """Device program up to the burst table (channelizer, then the demod)."""
+        return self.demod_channels(self.wire_channels(raw, phase0s, fmt))
+
+    def _phase0s(self, at: int) -> np.ndarray:
+        return np.stack([mixer_phase(off, self.cfg.input_rate, at)
+                         for off in self.cfg.offsets_hz])
 
     def pack_records(self, rec: BurstRecords) -> torch.Tensor:
         """The step's device-to-host buffer (compact or flat layout)."""
@@ -414,22 +501,21 @@ class WidebandReceiver:
             return pack_wire_compact(rec, fftlen, self.cfg.compact_lanes)
         return pack_wire_flat(rec, fftlen)
 
-    def stage_wire(self, raw_u8: np.ndarray, fmt: str = "cr1", pos: int | None = None):
+    def stage_wire(self, raw_u8: np.ndarray, fmt: str = "ci8", pos: int | None = None):
         """Copy one step's wire bytes to the device; returns a handle for
-        `dispatch_wire`.  `pos` overrides the stream position (absolute
-        raw index of the first sample) without advancing the counter."""
-        if fmt != "cr1":
-            raise NotImplementedError(
-                f"wire format {fmt!r} is not ported yet (ROADMAP A.9); the port ingests cr1")
-        want = cr1_wire_nbytes(self.n_in)
+        `dispatch_wire`.  `fmt` is one of WIRE_FORMATS; its channelizer is
+        built here on first use.  `pos` overrides the stream position
+        (absolute raw index of the first sample) without advancing the
+        counter."""
+        want = wire_nbytes(fmt, self.n_in)
         if raw_u8.size != want:
-            raise ValueError(f"cr1 wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
+            raise ValueError(
+                f"{fmt} wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
+        self.channelizer_for(self._wire_route(fmt)[0])
         at = self._pos if pos is None else int(pos)
-        phase0s = np.stack(
-            [mixer_phase(off, self.cfg.input_rate, at) for off in self.cfg.offsets_hz])
         host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
         raw = host.to(self.device, non_blocking=True)
-        ph = torch.from_numpy(phase0s).to(self.device)
+        ph = torch.from_numpy(self._phase0s(at)).to(self.device)
         if pos is None:
             self._pos += self.step_raw
         return raw, ph, at, fmt, raw_u8
@@ -438,14 +524,14 @@ class WidebandReceiver:
         """Enqueue the device program on a staged step; returns a handle
         for `collect` (on a CUDA device the work runs asynchronously)."""
         raw, ph, at, fmt, raw_u8 = staged
-        flat = self.pack_records(self.wire_records(raw, ph))
+        flat = self.pack_records(self.wire_records(raw, ph, fmt))
         done = None
         if flat.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(flat.device))
         return flat, done, at // self.cfg.decimation, raw_u8, fmt, at
 
-    def submit_wire(self, raw_u8: np.ndarray, fmt: str = "cr1", pos: int | None = None):
+    def submit_wire(self, raw_u8: np.ndarray, fmt: str = "ci8", pos: int | None = None):
         """Stage + dispatch one n_in-sample wire step."""
         return self.dispatch_wire(self.stage_wire(raw_u8, fmt, pos))
 
@@ -468,17 +554,7 @@ class WidebandReceiver:
             rec_np, dropped = unpack_wire_compact(flat_np, self.n_chan, self.n_blocks, K, n_pack)
         else:
             rec_np = unpack_wire_flat(flat_np, self.n_chan, self.n_blocks, K, n_pack)
-        n_det = rec_np.meta_i[:, :, 0, 3]
-        over = [(int(c), int(b), int(n_det[c, b])) for c, b in zip(*np.nonzero(n_det > K))]
-        seen = {(c, b) for c, b, _ in over}
-        over.extend(x for x in dropped if (x[0], x[1]) not in seen)
-        self.overflow_blocks += len(over)
-        if over and self.cfg.overflow_recovery:
-            raise BurstTableOverflow(
-                f"blocks (channel, block, n_detected) {over} of the step at channel "
-                f"sample {chan_start} overflowed the burst table (K={K}) or the lane "
-                f"directory (compact_lanes={self.cfg.compact_lanes}); host-side "
-                f"recovery is not ported yet (ROADMAP A.6)")
+        self._check_overflow(rec_np.meta_i[:, :, 0, 3], chan_start, dropped)
         if dropped:
             log.warning("compact_lanes=%d dropped valid lanes in %d block(s) and "
                         "overflow_recovery is off", self.cfg.compact_lanes, len(dropped))
@@ -489,6 +565,21 @@ class WidebandReceiver:
         if self.cfg.image_reject:
             packets = suppress_image_ghosts(packets)
         return packets
+
+    def _check_overflow(self, n_det: np.ndarray, chan_start: int, dropped=()) -> None:
+        """Count the step's overflowed blocks (burst table, or lane
+        directory: `dropped`); raise unless overflow_recovery is off."""
+        K = self.demod_cfg.max_bursts_per_block
+        over = [(int(c), int(b), int(n_det[c, b])) for c, b in zip(*np.nonzero(n_det > K))]
+        seen = {(c, b) for c, b, _ in over}
+        over.extend(x for x in dropped if (x[0], x[1]) not in seen)
+        self.overflow_blocks += len(over)
+        if over and self.cfg.overflow_recovery:
+            raise BurstTableOverflow(
+                f"blocks (channel, block, n_detected) {over} of the step at channel "
+                f"sample {chan_start} overflowed the burst table (K={K}) or the lane "
+                f"directory (compact_lanes={self.cfg.compact_lanes}); host-side "
+                f"recovery is not ported yet (ROADMAP A.6)")
 
     def collect(self, handle) -> list:
         """Wait for a submitted step and decode its packets.
@@ -510,9 +601,70 @@ class WidebandReceiver:
         st["steps"] += 1
         return packets
 
-    def decode_wire(self, raw_u8: np.ndarray, fmt: str = "cr1") -> list:
+    def decode_wire(self, raw_u8: np.ndarray, fmt: str = "ci8") -> list:
         """Decode one n_in-sample wire step (submit + collect)."""
         return self.collect(self.submit_wire(raw_u8, fmt))
+
+    # -- complex-IQ path ---------------------------------------------------
+
+    def device_step(self, x, start_raw: int) -> BurstRecords:
+        """One device call over exactly n_in complex samples whose first
+        is at absolute raw index `start_raw`: K5, then the demod.  `x` is
+        complex64, numpy or a tensor; it goes to the device as it is."""
+        x = torch.as_tensor(np.asarray(x, np.complex64)) if not torch.is_tensor(x) else x
+        if x.dtype != torch.complex64 or x.shape != (self.n_in,):
+            raise ValueError(f"a step is ({self.n_in},) complex64, got {x.dtype} {tuple(x.shape)}")
+        ph = torch.from_numpy(self._phase0s(start_raw)).to(self.device)
+        return self.demod_channels(self.channelizer_for("iq")(x.to(self.device), ph))
+
+    def process(self, iq: np.ndarray) -> list:
+        """Feed raw samples; returns (records, chan_start, step_iq) for each
+        full step: `chan_start` is the absolute channel-rate index of block
+        0, `step_iq` the step's samples (a view of the buffer)."""
+        self._buf = np.concatenate([self._buf, np.asarray(iq, np.complex64)])
+        out = []
+        while self._buf.size >= self.n_in:
+            step_iq = self._buf[: self.n_in]
+            rec = self.device_step(step_iq, self._pos)
+            out.append((rec, self._pos // self.cfg.decimation, step_iq))
+            self._buf = self._buf[self.step_raw:]
+            self._pos += self.step_raw
+        return out
+
+    def flush(self) -> list:
+        """End of stream: zero-pad the buffered tail to one full step and
+        decode it.  The padding becomes part of the stream, so flush only
+        at the end."""
+        if self._buf.size == 0:
+            return []
+        return self.decode(np.zeros(max(self.n_in - self._buf.size, 0), np.complex64))
+
+    def decode(self, iq: np.ndarray) -> list:
+        """Feed raw samples; returns the packets of the full steps."""
+        packets = []
+        for rec, chan_start, _ in self.process(iq):
+            rec_np = BurstRecords(*(t.cpu().numpy() for t in rec))
+            packets.extend(self._host_decode(rec_np, chan_start))
+        packets.sort(key=lambda p: p.abs_sample)
+        return packets
+
+    def _host_decode(self, rec_np: BurstRecords, chan_start: int) -> list:
+        """Host half of the complex path: deframe block by block, channel
+        major, then drop image ghosts."""
+        self._check_overflow(np.asarray(rec_np.n_detected), chan_start)
+        cfg = self.cfg
+        packets = []
+        for c in range(self.n_chan):
+            for b in range(self.n_blocks):
+                packets.extend(decode_block_records(
+                    BurstRecords(*(a[c, b] for a in rec_np)), chan_start + b * self.core_len,
+                    designator=cfg.designators[c], deframer=cfg.deframer,
+                    deduper=self._dedupers[c], fftlen=cfg.demod.fftlen,
+                    samples_per_symbol=cfg.sps))
+        packets.sort(key=lambda p: p.abs_sample)
+        if cfg.image_reject:
+            packets = suppress_image_ghosts(packets)
+        return packets
 
     def reset_dedup(self) -> None:
         """Forget dedup history (before re-decoding earlier positions)."""
@@ -524,20 +676,17 @@ class WidebandReceiver:
     # -- checkpoint / resume: the reference's state dict -----------------
 
     def get_state(self) -> dict:
-        """Stream state as the reference's dict.  `buf` (the complex-IQ
-        path's sample buffer) is always empty here: the wire path keeps
-        no samples between calls."""
+        """Stream state as the reference's dict: the complex path's sample
+        buffer, the absolute position of its first sample (which also
+        fixes the mixer phase) and the dedup memory."""
         return {
-            "buf": np.zeros(0, np.complex64),
+            "buf": self._buf.copy(),
             "pos": self._pos,
             "dedup_recent": [list(d._recent) for d in self._dedupers],
         }
 
     def set_state(self, state: dict) -> None:
-        if np.size(state.get("buf", ())):
-            raise NotImplementedError(
-                "a buffered complex-IQ stream cannot resume on the wire path; "
-                "the port's complex-IQ receiver is ROADMAP A.10")
+        self._buf = np.asarray(state["buf"], dtype=np.complex64).copy()
         self._pos = int(state["pos"])
         for d, recent in zip(self._dedupers, state["dedup_recent"]):
             d._recent = list(recent)

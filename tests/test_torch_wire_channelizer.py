@@ -71,8 +71,8 @@ def test_cr1_encoder_matches_reference():
             tconvert._sigma_delta_cr1_numpy(iq[:2000], 1.5, tconvert.CR1_A2),
             native.sigma_delta_cr1(iq[:2000], 1.5, tconvert.CR1_A2),
         )
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tconvert.host_bytes(iq, "ci8")
+    with pytest.raises(ValueError, match="unsupported format"):
+        tconvert.host_bytes(iq, "cx3")
 
 
 def test_mixer_phase_matches_reference():
@@ -117,7 +117,8 @@ def test_plain_matches_pallas_kernel(n_in):
 def test_supported_geometry():
     assert carrier_table_period(OFFSETS, RATE) == 96
     assert wire_channelizer_supported("cr1", TAPS.size, DECIM, OFFSETS, RATE, 1_998_200)
-    assert not wire_channelizer_supported("ci1", TAPS.size, DECIM, OFFSETS, RATE)
+    assert wire_channelizer_supported("ci1", TAPS.size, DECIM, OFFSETS, RATE)
+    assert not wire_channelizer_supported("cx3", TAPS.size, DECIM, OFFSETS, RATE)
     assert not wire_channelizer_supported("cr1", TAPS.size, DECIM, OFFSETS, RATE, 80_004)
     assert not wire_channelizer_supported("cr1", TAPS.size, DECIM, (np.pi * 1e4,), RATE)
     with pytest.raises(ValueError, match="unsupported"):
