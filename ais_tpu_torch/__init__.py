@@ -8,9 +8,14 @@ version beside it in the same module: a wrapper runs that plain version
 only for a tensor on the CPU, and for a CUDA tensor launches the kernel
 or raises.
 
-What runs today (slices 1 and 2): complex IQ or wire bytes of every
-format -> packets through `pipeline.wideband.WidebandReceiver`
-(`decode`, `flush`, `decode_wire(raw, fmt)`).
+What runs today (slices 1-3): complex IQ or wire bytes of every format
+-> packets through `pipeline.wideband.WidebandReceiver` (`decode`,
+`flush`, `decode_wire(raw, fmt)`), with overflow recovery and either
+bit decision (discriminator or coherent MLSE); the `ais_rx` receive
+path: `pipeline.radio.AisRadio` (fused wideband at whole decimations,
+ppm-shifted carriers included; per-channel `pipeline.api`
+receivers with the host resampler otherwise) and the CLI
+`python -m ais_tpu_torch.cli.ais_rx`.
 
 Module map (port <- reference):
 
@@ -18,21 +23,24 @@ Module map (port <- reference):
 ais_tpu_torch                         ais_tpu
 ====================================  ====================================
 ops/convert.py                        ops/convert.py (decoders, host_bytes)
-ops/fir.py                            ops/fir.py (mixer_phase, polyphase)
+ops/fir.py                            ops/fir.py (mixer, polyphase, xlating)
+ops/resample.py                       ops/resample.py
 ops/channelizer.py (K5)               ops/pallas_fir.py (float kernel)
 ops/wire_channelizer.py (K1, K3, K4)  ops/pallas_fir.py (wire kernels)
 ops/probe.py (K6)                     tools/tpu_pallas_probe.py
 ops/framing.py, window.py, agc.py     the same names
 ops/freq.py, demod.py, interp.py      the same names
 ops/matched_filter.py (K2)            ops/pallas_corr.py
-sync/corr.py, sync/feedforward.py     the same names
+sync/corr.py, feedforward.py, mlse.py the same names
 pipeline/receiver.py, host.py         the same names
-pipeline/wideband.py                  pipeline/wideband.py
+pipeline/wideband.py, recover.py      the same names
+pipeline/api.py, radio.py             the same names
+cli/ais_rx.py                         cli/ais_rx.py
 ====================================  ====================================
 
 The jax-free leaf modules of the reference (`ais_tpu.core.params`,
-`ais_tpu.ops.firdes`, `ais_tpu.decode`, `ais_tpu.native`, `ais_tpu.tx`)
-are reused as they are.
+`ais_tpu.ops.firdes`, `ais_tpu.decode`, `ais_tpu.native`, `ais_tpu.tx`,
+`ais_tpu.utils.cpm`, `ais_tpu.io`) are reused as they are.
 """
 
 import torch

@@ -167,6 +167,22 @@ def iq_from_bytes_cd1(raw_u8: torch.Tensor, n_samples: int) -> torch.Tensor:
     return iq_from_bytes_ci1(ci1_from_bytes_cd1(raw_u8, n_samples))
 
 
+def iq_from_bytes(raw_u8: torch.Tensor, fmt: str, n_samples: int) -> torch.Tensor:
+    """One step's wire bytes of any format -> complex64 on the tensor's
+    device: (n_samples,) for a full step (cr1 and cd1 need `n_samples`
+    for their framing; the others hold whole samples)."""
+    if fmt in _FRAMED:
+        return _FRAMED[fmt](raw_u8, n_samples)
+    if fmt in _UNFRAMED:
+        return _UNFRAMED[fmt](raw_u8)
+    raise ValueError(f"unsupported wire format {fmt!r}")
+
+
+_UNFRAMED = {"ci16": iq_from_bytes_ci16, "ci8": iq_from_bytes_ci8, "cu8": iq_from_bytes_cu8,
+             "ci4": iq_from_bytes_ci4, "ci2": iq_from_bytes_ci2, "ci1": iq_from_bytes_ci1}
+_FRAMED = {"cr1": iq_from_bytes_cr1, "cd1": iq_from_bytes_cd1}
+
+
 def cd1_bytes_from_ci1(ci1_bytes: np.ndarray, n_samples: int) -> np.ndarray:
     """Host-side ci1 -> cd1 transform (see ci1_from_bytes_cd1)."""
     bits = np.unpackbits(np.asarray(ci1_bytes, np.uint8))[: 2 * n_samples]

@@ -1,13 +1,16 @@
 """Batched AIS burst demodulator: demod blocks -> per-burst bit records.
 
-`BurstDemod` ports `ais_tpu/pipeline/receiver.py:make_burst_demod` for the main
-path's modes (`demod_mode="discriminator"`, `timing_mode="feedforward"`,
-the FIR symbol comb).  One call maps a (B, block_len) batch of halo'd
-blocks to a fixed-size table of K burst records per block:
+`BurstDemod` ports `ais_tpu/pipeline/receiver.py:make_burst_demod` with
+`timing_mode="feedforward"` and either bit decision of `demod_mode`.  One
+call maps a (B, block_len) batch of halo'd blocks to a fixed-size table
+of K burst records per block:
 
   AGC -> square-and-FFT AFC -> matched filter (K2) -> threshold/CFAR/NMS
   detection -> burst windows (a gather) -> RSSI, per-burst derotation ->
-  feedforward timing + symbol FIR -> quadrature demod -> slice/diff/invert
+    "discriminator": feedforward timing + symbol FIR -> quadrature demod
+    "mlse": fine carrier (refine_freq) -> derotation -> tone-phase
+            timing -> interval frames -> Viterbi over the GMSK trellis
+  -> slice/diff/invert
 
 Peaks are accepted only inside the block core, so blocks stepped by
 core_len decode every packet exactly once (overlap-save framing).
@@ -29,7 +32,17 @@ from ais_tpu_torch.ops.freq import square_and_fft_sync
 from ais_tpu_torch.ops.interp import NSTEPS, NTAPS
 from ais_tpu_torch.ops.matched_filter import MatchedFilter
 from ais_tpu_torch.sync.corr import autocorr_threshold, detect_bursts
-from ais_tpu_torch.sync.feedforward import feedforward_symbols_fir
+from ais_tpu_torch.sync.feedforward import (
+    estimate_timing,
+    feedforward_symbols_fir,
+    refine_freq,
+)
+from ais_tpu_torch.sync.mlse import (
+    burst_frames,
+    gmsk_trellis,
+    mlse_levels,
+    trellis_tensors,
+)
 
 
 class BurstRecords(NamedTuple):
@@ -68,10 +81,19 @@ def preamble_waveform(cfg: DemodConfig) -> np.ndarray:
     return gmsk_preamble(int(round(cfg.samples_per_symbol)), cfg.gmsk_bt)
 
 
+def demod_constants(cfg: DemodConfig) -> tuple[np.ndarray, np.ndarray, float]:
+    """(preamble, interpolation bank, feedforward delta) as the
+    reference builds them for `cfg`: BurstDemod's constants."""
+    from ais_tpu_torch.ops.interp import interp_taps
+    from ais_tpu_torch.sync.feedforward import ff_delta
+
+    return (preamble_waveform(cfg).astype(np.complex64), interp_taps(),
+            ff_delta(cfg.samples_per_symbol, cfg.gmsk_bt))
+
+
 def _check_modes(cfg: DemodConfig) -> None:
-    if cfg.demod_mode != "discriminator":
-        raise NotImplementedError(
-            f"demod_mode={cfg.demod_mode!r} is not ported yet (ROADMAP A.11)")
+    if cfg.demod_mode not in ("discriminator", "mlse"):
+        raise ValueError(f"unknown demod_mode {cfg.demod_mode!r}")
     if cfg.timing_mode != "feedforward":
         raise NotImplementedError(
             f"timing_mode={cfg.timing_mode!r} is not ported yet (ROADMAP A.11)")
@@ -89,9 +111,9 @@ def _check_modes(cfg: DemodConfig) -> None:
 class BurstDemod(torch.nn.Module):
     """(B, block_len) complex64 blocks -> BurstRecords with leading (B,).
 
-    Owns the matched filter (K2) and the interpolation bank; `preamble`,
-    `interp_bank` and `ff_delta` are the constants the reference builds
-    (see `pipeline/wideband.py:default_constants`)."""
+    Owns the matched filter (K2), the interpolation bank and, for
+    "mlse", the trellis tables; `preamble`, `interp_bank` and `ff_delta`
+    are the constants the reference builds (`demod_constants`)."""
 
     def __init__(self, cfg: DemodConfig, block_len: int, core_len: int, *,
                  preamble: np.ndarray, interp_bank: np.ndarray, ff_delta: float,
@@ -123,8 +145,27 @@ class BurstDemod(torch.nn.Module):
         )
         self.matched_filter = MatchedFilter(preamble, device=device)
         self.register_buffer("interp_bank", torch.tensor(bank, device=device))
+        self.trellis = None
+        if cfg.demod_mode == "mlse":
+            self.sps_int = int(round(cfg.samples_per_symbol))
+            self.trellis = gmsk_trellis(self.sps_int, cfg.gmsk_bt)
+            self.trellis_t = trellis_tensors(self.trellis, device)
 
     def forward(self, x: torch.Tensor) -> BurstRecords:
+        front = self.front(x)
+        bits, sym_valid = self.decide(front.bursts, front.offsets)
+        B, K = front.det.position.shape
+        det = front.det
+        return BurstRecords(
+            det.position, det.center, det.phase, det.mag, det.valid,
+            bits.reshape(B, K, self.n_sym), sym_valid.reshape(B, K, self.n_sym),
+            front.est, det.n_detected, front.win_start, front.rssi,
+        )
+
+    def front(self, x: torch.Tensor) -> "DemodFront":
+        """Everything before the bit decision: detection, burst windows
+        (B*K, win_len) derotated by their chunk's AFC estimate, and each
+        burst's preamble offset into its window."""
         cfg = self.cfg
         B = x.shape[0]
         K = cfg.max_bursts_per_block
@@ -167,13 +208,42 @@ class BurstDemod(torch.nn.Module):
         carrier_phase = ((-2.0 * math.pi / fs) * burst_freq)[:, None] * k[None, :]
         bursts = bursts * torch.polar(torch.ones_like(carrier_phase), carrier_phase)
 
-        symbols, sym_valid = feedforward_symbols_fir(
-            bursts, cfg.samples_per_symbol, self.n_sym, self.ff_delta,
-            self.interp_bank, seg_len=cfg.ff_seg_len)
-        bits = slice_diff_invert(quadrature_demod(symbols))
-        return BurstRecords(
-            det.position, det.center, det.phase, det.mag, det.valid,
-            bits.reshape(B, K, self.n_sym), sym_valid.reshape(B, K, self.n_sym),
-            est, det.n_detected, (win_idx * grid).to(torch.int32), rssi,
-        )
+        offsets = (starts - win_idx * grid).reshape(B * K)                # in [0, grid)
+        return DemodFront(det, est, bursts, offsets, (win_idx * grid).to(torch.int32), rssi)
+
+    def decide(self, bursts: torch.Tensor, offsets: torch.Tensor):
+        """(N, win_len) derotated bursts -> (bits uint8, valid bool), each
+        (N, n_sym), by the configured demod_mode."""
+        cfg = self.cfg
+        if self.trellis is None:
+            symbols, sym_valid = feedforward_symbols_fir(
+                bursts, cfg.samples_per_symbol, self.n_sym, self.ff_delta,
+                self.interp_bank, seg_len=cfg.ff_seg_len)
+            return slice_diff_invert(quadrature_demod(symbols)), sym_valid
+        # Coherent path: per-burst fine carrier, tone-phase timing,
+        # interval framing, trellis decode anchored on the training
+        # sequence, whose preamble starts `offsets` into the window.
+        sps = cfg.samples_per_symbol
+        w0 = refine_freq(bursts, sps, cfg.ff_seg_len)
+        k = torch.arange(self.win_len, dtype=torch.float32, device=bursts.device)
+        ph = -w0[:, None] * k[None, :]
+        b2 = bursts * torch.polar(torch.ones_like(ph), ph)
+        base, intercept, _ = estimate_timing(b2, sps, self.ff_delta, seg_len=cfg.ff_seg_len)
+        frames, sym_valid = burst_frames(b2, base + intercept, self.sps_int, self.n_sym,
+                                         self.ff_delta, self.trellis.frame_offset,
+                                         self.interp_bank)
+        ts = (offsets.to(torch.float32) / sps).to(torch.int32) + 2
+        levels = mlse_levels(frames, self.trellis_t, train_start=ts)
+        return slice_diff_invert(levels), sym_valid
+
+
+class DemodFront(NamedTuple):
+    """`BurstDemod.front`'s result: what the bit decision starts from."""
+
+    det: object                # sync/corr.py detection, leading (B, K)
+    est: torch.Tensor          # (B, n_chunks) AFC estimates, Hz
+    bursts: torch.Tensor       # (B*K, win_len) complex64, derotated
+    offsets: torch.Tensor      # (B*K,) preamble start within the window
+    win_start: torch.Tensor    # (B, K) int32
+    rssi: torch.Tensor         # (B, K)
 

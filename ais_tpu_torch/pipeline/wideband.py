@@ -16,11 +16,17 @@ then, on the device, both channels at 48 ksps
   -> overlap-save framing into demod blocks
   -> BurstDemod (AGC, AFC, K2 matched filter, detection, timing, bits)
 
+A carrier with no short period (a ppm-shifted offset) takes K5's, K3's
+or K4's full-length table (ops/channelizer.py); cr1 then goes through
+decode and K5, as for any geometry K1 does not take.
+
 The wire path packs the records into ONE uint8 buffer
 (`pack_wire_compact`, or `pack_wire_flat` with compact_lanes=0) and the
 host unpacks it and deframes every burst in one native call; the
 complex path fetches the burst records and deframes block by block
 (`decode_block_records`).  Both deduplicate and drop I/Q-image ghosts.
+A block whose burst table or lane directory overflowed is demodulated
+again with a larger table (pipeline/recover.py).
 Each channelizer is built at first use, so a geometry only the path in
 use must cover.
 
@@ -48,6 +54,7 @@ from ais_tpu_torch.ops.convert import (
     cd1_wire_nbytes,
     ci1_from_bytes_cd1,
     cr1_wire_nbytes,
+    iq_from_bytes,
     iq_from_bytes_ci8,
     iq_from_bytes_ci16,
     iq_from_bytes_cr1,
@@ -70,9 +77,10 @@ from ais_tpu_torch.pipeline.receiver import (
     BurstDemod,
     BurstRecords,
     burst_table_geometry,
-    preamble_waveform,
+    demod_constants,
     required_halo,
 )
+from ais_tpu_torch.pipeline.recover import recover_overflow_packets
 
 log = logging.getLogger("ais_tpu_torch")
 
@@ -92,9 +100,8 @@ class WidebandConfig(NamedTuple):
     # Drop cross-channel I/Q-image ghosts (pipeline/host.py).
     image_reject: bool = True
     # A block whose burst table or lane directory overflows is
-    # re-demodulated on the host in the reference; that recovery is not
-    # ported yet (ROADMAP A.6), so with True the port raises naming the
-    # blocks, and with False it logs them.
+    # channelized again on the host and re-demodulated with a larger
+    # table (pipeline/recover.py); with False it is only logged.
     overflow_recovery: bool = True
     # Valid-lane compaction of the device-to-host buffer (0 = off): ship
     # only this many valid lanes plus a lane directory.
@@ -149,16 +156,7 @@ def _demod_cfg(cfg: WidebandConfig) -> DemodConfig:
 
 def default_constants(cfg: WidebandConfig) -> ReceiverConstants:
     """The constants as the reference builds them for `cfg`."""
-    from ais_tpu_torch.ops.interp import interp_taps
-    from ais_tpu_torch.sync.feedforward import ff_delta
-
-    dcfg = _demod_cfg(cfg)
-    return ReceiverConstants(
-        taps=channel_taps(cfg),
-        preamble=preamble_waveform(dcfg).astype(np.complex64),
-        interp_bank=interp_taps(),
-        ff_delta=ff_delta(dcfg.samples_per_symbol, dcfg.gmsk_bt),
-    )
+    return ReceiverConstants(channel_taps(cfg), *demod_constants(_demod_cfg(cfg)))
 
 
 def constants_from_reference(taps, preamble, interp_bank, ff_delta) -> ReceiverConstants:
@@ -387,12 +385,6 @@ def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
     return WireRecords(meta_i, meta_f.reshape(C, B, K, 3), packed), dropped
 
 
-class BurstTableOverflow(RuntimeError):
-    """A block detected more bursts than its table or the lane directory
-    holds, and the host-side recovery that would re-demodulate it is not
-    ported yet (ROADMAP A.6)."""
-
-
 class WidebandReceiver:
     """Streaming receiver on one device (see the module docstring)."""
 
@@ -422,7 +414,10 @@ class WidebandReceiver:
         self._buf = np.zeros(0, np.complex64)  # complex path: samples not yet consumed
         self._pos = 0  # absolute raw index of the next call's first sample (= _buf[0])
         self._dedupers = [PacketDeduper() for _ in cfg.offsets_hz]
+        # Overflowed blocks seen, and the host seconds spent recovering them.
         self.overflow_blocks = 0
+        self.recover_s = 0.0
+        self._recover_demods: dict = {}
         self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
 
     @property
@@ -544,8 +539,10 @@ class WidebandReceiver:
     # -- host half -------------------------------------------------------
 
     def decode_fetched(self, fetched) -> list:
-        """Host back half: unpack, check for overflow, deframe, dedup."""
-        flat_np, chan_start, _raw_u8, _fmt, _at = fetched
+        """Host back half: unpack, deframe, dedup, then recover the
+        blocks whose burst table or lane directory overflowed from the
+        step's wire bytes (with overflow_recovery on)."""
+        flat_np, chan_start, raw_u8, fmt, at = fetched
         _, n_sym = burst_table_geometry(self.demod_cfg)
         n_pack = -(-n_sym // 8)
         K = self.demod_cfg.max_bursts_per_block
@@ -554,32 +551,57 @@ class WidebandReceiver:
             rec_np, dropped = unpack_wire_compact(flat_np, self.n_chan, self.n_blocks, K, n_pack)
         else:
             rec_np = unpack_wire_flat(flat_np, self.n_chan, self.n_blocks, K, n_pack)
-        self._check_overflow(rec_np.meta_i[:, :, 0, 3], chan_start, dropped)
-        if dropped:
+        over = self._overflowed(rec_np.meta_i[:, :, 0, 3], dropped)
+        if dropped and not self.cfg.overflow_recovery:
             log.warning("compact_lanes=%d dropped valid lanes in %d block(s) and "
                         "overflow_recovery is off", self.cfg.compact_lanes, len(dropped))
         packets = decode_wire_records(
             rec_np, n_sym, chan_start, self.core_len,
             designators=self.cfg.designators, dedupers=self._dedupers,
             deframer=self.cfg.deframer, samples_per_symbol=self.cfg.sps)
+        if over and self.cfg.overflow_recovery:
+            # The step's samples from its wire bytes: the device decoders
+            # on a CPU tensor.
+            host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
+            iq_raw = iq_from_bytes(host, fmt, self.n_in).numpy()
+            packets.extend(self._recover(iq_raw, at, over))
+            packets.sort(key=lambda p: p.abs_sample)
         if self.cfg.image_reject:
             packets = suppress_image_ghosts(packets)
         return packets
 
-    def _check_overflow(self, n_det: np.ndarray, chan_start: int, dropped=()) -> None:
-        """Count the step's overflowed blocks (burst table, or lane
-        directory: `dropped`); raise unless overflow_recovery is off."""
+    def _overflowed(self, n_det: np.ndarray, dropped=()) -> list:
+        """The step's overflowed blocks as (channel, block, n_detected):
+        burst table, or lane directory (`dropped`); counted in
+        `overflow_blocks`."""
         K = self.demod_cfg.max_bursts_per_block
         over = [(int(c), int(b), int(n_det[c, b])) for c, b in zip(*np.nonzero(n_det > K))]
         seen = {(c, b) for c, b, _ in over}
         over.extend(x for x in dropped if (x[0], x[1]) not in seen)
         self.overflow_blocks += len(over)
-        if over and self.cfg.overflow_recovery:
-            raise BurstTableOverflow(
-                f"blocks (channel, block, n_detected) {over} of the step at channel "
-                f"sample {chan_start} overflowed the burst table (K={K}) or the lane "
-                f"directory (compact_lanes={self.cfg.compact_lanes}); host-side "
-                f"recovery is not ported yet (ROADMAP A.6)")
+        return over
+
+    def _recover(self, iq_raw: np.ndarray, abs_raw_start: int, over: list) -> list:
+        """Re-demodulate the overflowed blocks of a step whose raw samples
+        are `iq_raw` (pipeline/recover.py), on this receiver's device."""
+        t0 = time.perf_counter()
+        packets = recover_overflow_packets(
+            iq_raw, abs_raw_start, self.cfg, self.constants.taps, over, self._dedupers,
+            self._recover_demod)
+        self.recover_s += time.perf_counter() - t0
+        return packets
+
+    def _recover_demod(self, k: int) -> BurstDemod:
+        """The demodulator with a burst table of `k`, built once."""
+        demod = self._recover_demods.get(k)
+        if demod is None:
+            cfg = dataclasses.replace(self.demod_cfg, max_bursts_per_block=k)
+            c = self.constants
+            demod = BurstDemod(cfg, self.cfg.block_len, self.core_len, preamble=c.preamble,
+                               interp_bank=c.interp_bank, ff_delta=c.ff_delta,
+                               device=self.device)
+            self._recover_demods[k] = demod
+        return demod
 
     def collect(self, handle) -> list:
         """Wait for a submitted step and decode its packets.
@@ -642,16 +664,17 @@ class WidebandReceiver:
     def decode(self, iq: np.ndarray) -> list:
         """Feed raw samples; returns the packets of the full steps."""
         packets = []
-        for rec, chan_start, _ in self.process(iq):
+        for rec, chan_start, step_iq in self.process(iq):
             rec_np = BurstRecords(*(t.cpu().numpy() for t in rec))
-            packets.extend(self._host_decode(rec_np, chan_start))
+            packets.extend(self._host_decode(rec_np, chan_start, step_iq))
         packets.sort(key=lambda p: p.abs_sample)
         return packets
 
-    def _host_decode(self, rec_np: BurstRecords, chan_start: int) -> list:
+    def _host_decode(self, rec_np: BurstRecords, chan_start: int, iq_raw: np.ndarray) -> list:
         """Host half of the complex path: deframe block by block, channel
-        major, then drop image ghosts."""
-        self._check_overflow(np.asarray(rec_np.n_detected), chan_start)
+        major, recover overflowed blocks from the step's raw samples
+        `iq_raw`, then drop image ghosts."""
+        over = self._overflowed(np.asarray(rec_np.n_detected))
         cfg = self.cfg
         packets = []
         for c in range(self.n_chan):
@@ -661,6 +684,8 @@ class WidebandReceiver:
                     designator=cfg.designators[c], deframer=cfg.deframer,
                     deduper=self._dedupers[c], fftlen=cfg.demod.fftlen,
                     samples_per_symbol=cfg.sps))
+        if over and cfg.overflow_recovery:
+            packets.extend(self._recover(iq_raw, chan_start * cfg.decimation, over))
         packets.sort(key=lambda p: p.abs_sample)
         if cfg.image_reject:
             packets = suppress_image_ghosts(packets)

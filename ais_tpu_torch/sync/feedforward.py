@@ -1,7 +1,7 @@
 """Feedforward burst timing from the MSK tone pair, batched over bursts.
 
-Port of `ais_tpu/sync/feedforward.py` (`_calibrate`, `estimate_timing`,
-`feedforward_symbols_fir`).  Squaring an MSK/GMSK burst gives tones at
+Port of `ais_tpu/sync/feedforward.py` (`_calibrate`, `refine_freq`,
+`estimate_timing`, `feedforward_symbols_fir`).  Squaring an MSK/GMSK burst gives tones at
 +-Rs/2 whose phases encode the symbol clock: per segment,
 psi = arg(C+ conj(C-)) = psi0 - 2 pi tau / T, so two correlations per
 segment locate the symbol centres, a weighted line across segments
@@ -63,6 +63,28 @@ def _tones(length: int, sps: float, device) -> tuple[torch.Tensor, torch.Tensor]
     tp = torch.tensor(np.exp(-1j * theta * n).astype(np.complex64), device=device)
     tm = torch.tensor(np.exp(+1j * theta * n).astype(np.complex64), device=device)
     return tp, tm
+
+
+def refine_freq(bursts: torch.Tensor, sps: float, seg_len: int = 256,
+                min_weight_frac: float = 0.25) -> torch.Tensor:
+    """Fine residual carrier of (N, L) bursts in rad/sample, (N,) float32.
+
+    The +Rs/2 tone of x^2 sits at pi/sps + 2 w0, so the phase step of its
+    segment correlations between neighbouring segments is 2 w0 seg_len:
+    their weighted mean angle gives w0 (unambiguous for |w0| <
+    pi / (2 seg_len), ~+-46 Hz at 48 ksps)."""
+    n_bursts, length = bursts.shape
+    n_segs = length // seg_len
+    tone_p, _ = _tones(length, sps, bursts.device)
+    z = bursts * bursts
+    cp = (z * tone_p)[:, : n_segs * seg_len].reshape(n_bursts, n_segs, seg_len).sum(-1)
+    w = cp.abs()
+    prod = cp[:, 1:] * cp[:, :-1].conj()
+    ww = torch.sqrt(w[:, 1:] * w[:, :-1])
+    ww = torch.where(ww >= min_weight_frac * ww.amax(-1, keepdim=True), ww, torch.zeros_like(ww))
+    norm = ww / ww.sum(-1, keepdim=True).clamp(min=1e-12)
+    slope = torch.angle((prod * norm).sum(-1))
+    return (slope / (2.0 * seg_len)).to(torch.float32)
 
 
 def estimate_timing(bursts: torch.Tensor, sps: float, delta: float,

@@ -6,8 +6,9 @@
 Drives the port's paths — cr1 wire bytes, complex IQ, and every other
 wire format, to AIS packets through `WidebandReceiver.decode_wire` and
 `WidebandReceiver.decode` — at the benchmark geometry (96 demod blocks
-a call, K = 24, compact_lanes = 2688) on the full-load TDMA scene, in
-phases, one result line each:
+a call, K = 24, compact_lanes = 2688) on the full-load TDMA scene, then
+the `ais_rx` receive path (`AisRadio` in both topologies, MLSE,
+overflow recovery, the CLI), in phases, one result line each:
 
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, the TF32 flags, the native host library;
@@ -16,7 +17,8 @@ phases, one result line each:
   4. K1 (cr1 wire channelizer), K2 (matched filter), K3 (ci1 wire
      channelizer), K4 (ci2, ci4 wire channelizers) and K5 (float
      channelizer), each against its plain PyTorch version at the
-     paths' shapes, with the median time of each;
+     paths' shapes, with the median time of each; k5_full: K5 with the
+     full-length carrier table of a 50 ppm radio at the bench n_in;
   5. main path (cr1): a warm-up decode whose packets must match the
      transmitted ones (content parity 1.0), then timed steps, then the
      time of each stage;
@@ -24,11 +26,26 @@ phases, one result line each:
      (parity 1.0), its step time and stages;
   7. wire_formats: one `decode_wire` per format (ci16, ci8, ci4, ci2,
      ci1, cd1) of the same scene: parity 1.0 for ci16, ci8 and ci1,
-     cd1's packets equal to ci1's, at least 0.99 for ci4 and ci2.
+     cd1's packets equal to ci1's, at least 0.99 for ci4 and ci2;
+  8. radio_wideband_ppm: `AisRadio(sample_rate=2.4e6, ppm=50)` (8-block
+     steps) runs the scene as a device 50 ppm high records it, in
+     1 << 20-sample chunks: every K5 launch on the full-length table;
+  9. mlse: the complex path with `demod_mode="mlse"` (threshold 0.4),
+     the MLSE stage timed apart; its packets must be the JAX
+     reference's on the same scene (`tests/test_torch_reference_packets.json`);
+ 10. overflow: the cr1 path at 8 blocks with K = 3 (3x overflow), every
+     overflowed block recovered;
+ 11. radio_channels: `AisRadio(sample_rate=250e3)` (one ChannelReceiver
+     a channel: K5 with one channel, the host resampler, the baseband
+     demod) over a 250 ksps full-load scene of 21 s; its packets must be
+     the JAX reference's (`tests/test_torch_reference_packets.json`);
+ 12. ais_rx: `python -m ais_tpu_torch.cli.ais_rx` on a 250 ksps cf32
+     capture must print the golden sentence.
 
 Each path runs with every launch count set to 0 just before it and
 reads them just after: each kernel of the path must have launched, and
-no block may overflow its burst table or the lane directory.  Any
+no block may overflow its burst table or the lane directory (but in the
+overflow phase, where every block must and is recovered).  Any
 failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.  It needs one
@@ -37,11 +54,15 @@ CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -51,10 +72,35 @@ PATH_STEPS = 3  # timed steps of the complex path and of each wire format
 SEED = 7
 TOLERANCE = "|err| <= 2e-5*max|y| + 2e-4*|y|"
 WIRE_FORMATS = ("ci16", "ci8", "ci4", "ci2", "ci1", "cd1")
+RADIO_PPM = 50.0           # LO error of the ppm radio phase
+OVERFLOW_BLOCKS, OVERFLOW_K = 8, 3
+CHANNELS_RATE, CHANNELS_SECONDS = 250e3, 21.0
+BURST_SPAN_2P4M = 64500    # the scene's packet span at 2.4 Msps
+REPO = Path(__file__).resolve().parent
+# The JAX reference's packets on the mlse and radio_channels scenes,
+# where it does not decode the whole content either (ROADMAP C):
+# written on the CPU by tests/test_torch_reference_packets.py.
+REFERENCE_PACKETS = REPO / "tests" / "test_torch_reference_packets.json"
 
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def packet_keys(packets) -> list:
+    """Packets as sorted [designator, abs_sample, payload hex] entries."""
+    return sorted([p.designator, int(p.abs_sample), p.payload.hex()] for p in packets)
+
+
+def reference_packets(scene: str) -> list:
+    return json.loads(REFERENCE_PACKETS.read_text())[scene]
+
+
+def packet_diff(found, want: list) -> dict:
+    """The packets only the port decoded, and those only the reference did."""
+    got = {tuple(k) for k in packet_keys(found)}
+    ref = {tuple(k) for k in want}
+    return {"only_port": sorted(got - ref), "only_reference": sorted(ref - got)}
 
 
 def bench_geometry():
@@ -452,7 +498,7 @@ def complex_stages(rx, iq: np.ndarray, reps: int = PATH_STEPS) -> dict:
         del x, chans, rec
         rx.reset_dedup()
         t0 = time.perf_counter()
-        rx._host_decode(rec_np, 0)
+        rx._host_decode(rec_np, 0, iq)
         host.append((time.perf_counter() - t0) * 1e3)
     out = {f"{n}_ms": statistics.median(col) for n, col in zip(names, zip(*runs))}
     out["host_half_ms"] = statistics.median(host)
@@ -565,6 +611,306 @@ def stage_breakdown(rx, wire: np.ndarray, reps: int = 5) -> dict:
     return out
 
 
+class ArraySource:
+    """An in-memory capture as an `ais_tpu.io.sources.SampleSource`."""
+
+    def __init__(self, iq: np.ndarray, sample_rate: float):
+        self.iq = iq
+        self.sample_rate = sample_rate
+
+    def chunks(self, chunk_len: int):
+        for i in range(0, self.iq.size, chunk_len):
+            yield self.iq[i: i + chunk_len]
+
+
+def phase_k5_full(cfg, n_in: int, row: dict) -> None:
+    """K5 with the full-length table (the 50 ppm radio's offsets, period
+    24 000, at the bench n_in) against its plain version; the times go
+    into K5's kernels-line row as full_table_*."""
+    import torch
+
+    from ais_tpu_torch.ops.channelizer import (
+        Channelizer, freq_xlating_polyphase, freq_xlating_polyphase_plain, rotate_carrier,
+    )
+    from ais_tpu_torch.pipeline.radio import ppm_offset_hz
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    dev = torch.device("cuda")
+    shifted = cfg._replace(offsets_hz=tuple(o + ppm_offset_hz(RADIO_PPM) for o in cfg.offsets_hz))
+    chan = Channelizer(channel_taps(cfg), cfg.decimation, shifted.offsets_hz, cfg.input_rate,
+                       n_in, device=dev)
+    if not chan.full_table:
+        raise RuntimeError("the 50 ppm offsets should take the full-length table")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
+                      torch.randn(n_in, device=dev, generator=gen)) * 0.3
+    ph = random_phase0s(shifted, np.random.default_rng(SEED + 2))
+    car = rotate_carrier(chan.carrier, ph)
+    full = hold_channelizer(
+        "k5_full",
+        lambda: freq_xlating_polyphase(x, car, chan.taps, decim=chan.decim),
+        lambda: freq_xlating_polyphase_plain(x, car, chan.taps, chan.decim),
+        {"name": "channelizer", "source": "ais_tpu_torch/csrc/channelizer.cu",
+         "replaces": "ais_tpu/ops/pallas_fir.py:171"},
+        shape=[len(cfg.offsets_hz), chan.n_out], n_in=n_in, offsets_hz=list(shifted.offsets_hz),
+        table_mb=chan.carrier.numel() * 4 / 1e6,
+        rotate_ms=cuda_ms(lambda: rotate_carrier(chan.carrier, ph), 5))
+    row.update(full_table_ms=full["ms"], full_table_plain_ms=full["plain_ms"],
+               full_table_max_abs_err=full["max_abs_err"])
+    del x, car, chan
+    torch.cuda.empty_cache()
+
+
+def shift_capture(iq: np.ndarray, shift_hz: float, rate: float) -> np.ndarray:
+    """The capture as a device whose LO is off by -shift_hz records it:
+    every carrier moved by +shift_hz (float64 phase, on the card)."""
+    import torch
+
+    x = torch.from_numpy(iq).to("cuda")
+    n = torch.arange(x.numel(), dtype=torch.float64, device="cuda")
+    ph = torch.remainder((2.0 * math.pi * shift_hz / rate) * n, 2.0 * math.pi).to(torch.float32)
+    out = (x * torch.polar(torch.ones_like(ph), ph)).cpu().numpy()
+    del x, n, ph
+    return out
+
+
+def run_radio(radio, iq: np.ndarray, rate: float) -> tuple[list, float]:
+    """Packets of `AisRadio.run` over an in-memory capture in 1 << 20-sample
+    chunks, and the wall seconds (the card idle at the end)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = list(radio.run(ArraySource(iq, rate), chunk_len=1 << 20))
+    torch.cuda.synchronize()
+    return found, time.perf_counter() - t0
+
+
+def phase_radio_wideband_ppm(card: str, iq: np.ndarray, tx_packets) -> dict:
+    """`AisRadio(2.4 Msps, ppm=50)` at its defaults (block 16384, 8 fused
+    blocks) over the bench scene as a device 50 ppm high records it (the
+    channels at -16.9 and +33.1 kHz: period 24 000, so K5's full-length
+    table)."""
+    import dataclasses
+
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.pipeline.radio import AisRadio, ppm_offset_hz
+    from ais_tpu_torch.scene import content_parity
+
+    shift = ppm_offset_hz(RADIO_PPM)
+    t0 = time.perf_counter()
+    shifted = shift_capture(iq, shift, 2.4e6)
+    shift_s = time.perf_counter() - t0
+    tx = [dataclasses.replace(p, offset_hz=p.offset_hz + shift) for p in tx_packets]
+    radio = AisRadio(sample_rate=2.4e6, ppm=RADIO_PPM, device="cuda")
+    rx = radio.wideband
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    found, wall = run_radio(radio, shifted, 2.4e6)
+    launches = _build.launch_counts()
+    # The radio's one K5 module: every channelizer launch of this run
+    # went through its table, so all of them were full-length when it is.
+    chan = rx.channelizer_for("iq")
+    full = chan.full_table and chan.carrier.shape[1] == rx.n_in
+    parity = content_parity(found, tx, rx.cfg.decimation)
+    steps = launches["channelizer"]
+    out = {"card": card, "offsets_hz": list(rx.cfg.offsets_hz), "n_in": rx.n_in,
+           "step_raw": rx.step_raw, "blocks": rx.n_blocks,
+           "table_mb": chan.carrier.numel() * 4 / 1e6,
+           "input_samples": int(shifted.size), "shift_s": shift_s,
+           "tx_packets": len(tx), "decoded": len(found), "content_parity": parity,
+           "overflow_blocks": rx.overflow_blocks, "launches": launches,
+           "full_length_table": full, "steps": steps, "wall_s": wall,
+           "ms_per_step": wall / max(steps, 1) * 1e3, "msamples_per_s": shifted.size / wall / 1e6,
+           "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}
+    log("radio_wideband_ppm", **out)
+    if parity != 1.0:
+        raise RuntimeError(f"ppm radio: content parity {parity} != 1.0")
+    if rx.overflow_blocks:
+        raise RuntimeError(f"ppm radio: {rx.overflow_blocks} blocks overflowed")
+    if not full or steps < 1:
+        raise RuntimeError(f"ppm radio: {steps} K5 launches, full-length table: {full}")
+    return path_launches(launches, ("channelizer", "matched_filter"))
+
+
+def phase_mlse(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> dict:
+    """The complex path at the bench geometry with the coherent MLSE
+    decision (threshold 0.4); the decision stage timed apart, against
+    the discriminator's on the same bursts.  The packets must be the JAX
+    reference's on this scene, packet for packet (at full load MLSE
+    decodes ~80 % of it in both packages, ROADMAP C)."""
+    import dataclasses
+
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.pipeline.receiver import BurstDemod
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+    from ais_tpu_torch.scene import content_parity
+
+    mcfg = cfg._replace(demod=dataclasses.replace(cfg.demod, demod_mode="mlse",
+                                                  corr_threshold=0.4))
+    rx = WidebandReceiver(mcfg, n_in=n_in, device="cuda")
+    fresh = rx.get_state()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = rx.decode(iq)
+    warm_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    parity = content_parity(found, tx_packets, cfg.decimation)
+    rx.set_state(fresh)
+    t0 = time.perf_counter()
+    n_again = len(rx.decode(iq))
+    step_s = time.perf_counter() - t0
+
+    # Stage times on one step: front (AGC ... derotated bursts), then the
+    # MLSE decision and the discriminator's on the same bursts.
+    x = torch.from_numpy(iq).to("cuda")
+    chans = rx.channelizer_for("iq")(x, torch.from_numpy(rx._phase0s(0)).to("cuda"))
+    blocks = chans.unfold(-1, cfg.block_len, rx.core_len)[:, : rx.n_blocks].reshape(
+        rx.n_chan * rx.n_blocks, cfg.block_len)
+    del x
+    c = rx.constants
+    disc = BurstDemod(dataclasses.replace(rx.demod_cfg, demod_mode="discriminator"),
+                      cfg.block_len, rx.core_len, preamble=c.preamble,
+                      interp_bank=c.interp_bank, ff_delta=c.ff_delta, device="cuda")
+    runs = []
+    for _ in range(PATH_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        front = rx.demod.front(blocks)
+        ev[1].record()
+        rx.demod.decide(front.bursts, front.offsets)
+        ev[2].record()
+        disc.decide(front.bursts, front.offsets)
+        ev[3].record()
+        ev[3].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del front
+    front_ms, mlse_ms, disc_ms = (statistics.median(c) for c in zip(*runs))
+    del blocks, chans
+    torch.cuda.empty_cache()
+
+    want = reference_packets("mlse_bench")
+    diff = packet_diff(found, want)
+    out = {"card": card, "n_in": rx.n_in, "bursts_per_call": rx.n_chan * rx.n_blocks *
+           mcfg.demod.max_bursts_per_block, "tx_packets": len(tx_packets),
+           "decoded": len(found), "content_parity": parity,
+           "reference_decoded": len(want), **diff,
+           "overflow_blocks": rx.overflow_blocks, "recover_s": rx.recover_s,
+           "launches": launches, "warmup_ms": warm_s * 1e3, "step_ms": step_s * 1e3,
+           "decoded_again": n_again, "front_ms": front_ms, "mlse_decide_ms": mlse_ms,
+           "discriminator_decide_ms": disc_ms,
+           "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}
+    log("mlse", **out)
+    if diff["only_port"] or diff["only_reference"] or n_again != len(found):
+        raise RuntimeError(f"mlse: the packets differ from the reference's: {diff}")
+    return path_launches(launches, ("channelizer", "matched_filter"))
+
+
+def phase_overflow(cfg, card: str, iq: np.ndarray, tx_packets) -> dict:
+    """The cr1 wire path at 8 blocks with a burst table of 3, a third of
+    the scene's ~9 bursts a block and channel: every block overflows and
+    is re-demodulated on the host side with a larger table."""
+    import dataclasses
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops.convert import host_bytes
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver, aligned_n_in, num_taps
+    from ais_tpu_torch.scene import content_parity
+
+    ocfg = cfg._replace(demod=dataclasses.replace(cfg.demod, max_bursts_per_block=OVERFLOW_K),
+                        compact_lanes=14 * 2 * OVERFLOW_BLOCKS)
+    n48 = ocfg.block_len + ocfg.core_len * (OVERFLOW_BLOCKS - 1)
+    rx = WidebandReceiver(ocfg, n_in=aligned_n_in(ocfg, (n48 - 1) * ocfg.decimation
+                                                  + num_taps(ocfg)), device="cuda")
+    tx = [p for p in tx_packets if p.start_sample + BURST_SPAN_2P4M < rx.step_raw]
+    wire = host_bytes((iq[: rx.n_in] * 0.7).astype(np.complex64), "cr1")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = rx.decode_wire(wire, "cr1")
+    step_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    parity = content_parity(found, tx, ocfg.decimation)
+    out = {"card": card, "n_in": rx.n_in, "blocks": rx.n_blocks, "K": OVERFLOW_K,
+           "tx_packets": len(tx), "decoded": len(found), "content_parity": parity,
+           "overflow_blocks": rx.overflow_blocks, "recover_ms": rx.recover_s * 1e3,
+           "recover_tables": sorted(rx._recover_demods), "step_ms": step_s * 1e3,
+           "launches": launches}
+    log("overflow", **out)
+    if parity != 1.0 or rx.overflow_blocks < 1:
+        raise RuntimeError(f"overflow: parity {parity}, {rx.overflow_blocks} overflowed blocks")
+    return path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+
+
+def phase_radio_channels(card: str) -> dict:
+    """`AisRadio(sample_rate=250e3)`: one ChannelReceiver a channel (K5
+    with one channel, the host resampler to 48 ksps, the baseband demod)
+    over a 250 ksps full-load scene, in 1 << 20-sample chunks."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.pipeline.radio import AisRadio
+    from ais_tpu_torch.pipeline.wideband import WidebandConfig
+    from ais_tpu_torch.scene import content_parity, full_load_scene
+
+    rate = CHANNELS_RATE
+    n = int(rate * CHANNELS_SECONDS)
+    t0 = time.perf_counter()
+    iq, tx = full_load_scene(WidebandConfig(input_rate=rate), n, n - int(rate * 0.1),
+                             seed=SEED, lead=int(rate * 0.05))
+    scene_s = time.perf_counter() - t0
+    radio = AisRadio(sample_rate=rate, device="cuda")
+    _build.reset_launch_counts()
+    found, wall = run_radio(radio, iq, rate)
+    launches = _build.launch_counts()
+    parity = content_parity(found, tx, rate / 48e3)
+    want = reference_packets("radio_channels")
+    diff = packet_diff(found, want)
+    out = {"card": card, "rate": rate, "air_s": n / rate, "scene_s": scene_s,
+           "resample_rate": radio.rx_paths[0].resample_rate, "tx_packets": len(tx),
+           "decoded": len(found), "content_parity": parity,
+           "reference_decoded": len(want), **diff,
+           "launches": launches, "wall_s": wall, "realtime_x": n / rate / wall,
+           "msamples_per_s": n / wall / 1e6}
+    log("radio_channels", **out)
+    if diff["only_port"] or diff["only_reference"]:
+        raise RuntimeError(f"250 ksps radio: the packets differ from the reference's: {diff}")
+    return path_launches(launches, ("channelizer", "matched_filter"))
+
+
+def phase_ais_rx(card: str) -> dict:
+    """The CLI on a 250 ksps cf32 capture: in this process (launch
+    counts), then as `python -m ais_tpu_torch.cli.ais_rx` in a child."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.cli import ais_rx
+    from ais_tpu_torch.scene import GOLDEN_SENTENCE, golden_capture
+
+    path = REPO / "build" / "chip_smoke" / "golden_250k.cf32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    golden_capture(250e3).tofile(path)
+    argv = ["-s", str(path), "-r", "250000"]
+    _build.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ais_rx.main(argv)
+    launches = _build.launch_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ais_tpu_torch.cli.ais_rx", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    out = {"card": card, "in_process": buf.getvalue().splitlines(),
+           "stdout": proc.stdout.splitlines(), "rc": proc.returncode,
+           "subprocess_s": time.perf_counter() - t0, "launches": launches}
+    log("ais_rx", **out)
+    if proc.returncode != 0 or out["stdout"] != [GOLDEN_SENTENCE] \
+            or out["in_process"] != [GOLDEN_SENTENCE]:
+        raise RuntimeError(f"ais_rx printed {out['stdout']} (rc {proc.returncode}): "
+                           f"{proc.stderr[-2000:]}")
+    return path_launches(launches, ("channelizer", "matched_filter"))
+
+
 def phase_scene(cfg, n_in: int):
     """The full-load scene of one step, synthesized once for every path."""
     from ais_tpu_torch.pipeline.host import native_available
@@ -588,11 +934,17 @@ def main() -> int:
     rows = [phase_probe()]
     cfg, n_in = bench_geometry()
     rows += [phase_k1(cfg, n_in), phase_k2(), *phase_k3_k4_k5(cfg, n_in)]
+    phase_k5_full(cfg, n_in, rows[-1])
     iq, tx_packets = phase_scene(cfg, n_in)
     card = env["card"]
     paths = [phase_main_path(cfg, n_in, card, iq, tx_packets)["launches"],
              phase_complex_iq(cfg, n_in, card, iq, tx_packets)["launches"],
-             *phase_wire_formats(cfg, n_in, card, iq, tx_packets).values()]
+             *phase_wire_formats(cfg, n_in, card, iq, tx_packets).values(),
+             phase_radio_wideband_ppm(card, iq, tx_packets),
+             phase_mlse(cfg, n_in, card, iq, tx_packets),
+             phase_overflow(cfg, card, iq, tx_packets)]
+    del iq
+    paths += [phase_radio_channels(card), phase_ais_rx(card)]
     # Each kernel's launches over the paths that drive it (the probe's
     # over its own phase).
     for row in rows:

@@ -134,7 +134,7 @@ def test_support_predicates_accept_where_reference_accepts():
         assert g or got or not r, ("cr1", ntaps, decim, offs)
     assert not twc.wire_channelizer_supported("cr1", 2891, 50, (-1e3, 1e3), RATE)
     assert tch.channelizer_supported(TAPS.size, DECIM, OFFSETS, RATE, 1_998_200)
-    assert not tch.channelizer_supported(2891, 50, (25e3 * np.sqrt(2),), 2.4e6)
+    assert tch.channelizer_supported(2891, 50, (25e3 * np.sqrt(2),), 2.4e6)  # full-length table
     assert tch.channelizer_supported(64 * 50 + 1, 50, OFFSETS, RATE)
     assert not tch.channelizer_supported(TAPS.size, DECIM, OFFSETS, RATE, 80_010)
     assert not twc.wire_channelizer_supported("ci1", TAPS.size, DECIM, OFFSETS, RATE, 80_050)
@@ -147,11 +147,31 @@ def test_support_predicates_accept_where_reference_accepts():
 
 
 def test_unsupported_geometry_raises_naming_the_fft_formulation():
-    with pytest.raises(NotImplementedError, match="A.10") as e:
-        tch.Channelizer(TAPS, DECIM, (25e3 * np.sqrt(2),), RATE, 80_000)
-    assert "ops/fir.py:freq_xlating_polyphase" in str(e.value)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        twc.PackedWireChannelizer("ci2", TAPS, DECIM, (25e3 * np.sqrt(2),), RATE, 80_000)
+    """A carrier with no period (sqrt(2) x 25 kHz), once refused, now
+    runs on K5 (and K4) with the full-length table: against the
+    reference's FFT-mode channelizer on complex samples, and against its
+    own float path on ci2 bytes.  Only a geometry with no tile raises."""
+    from ais_tpu.ops.cplx import to_planes
+    from ais_tpu.ops.fir import _mixer_carrier, freq_xlating_polyphase, polyphase_spectra
+
+    offsets, n_in = (25e3 * np.sqrt(2), -25e3), 80_000
+    iq = _iq(n_in, 21)
+    ph = _phase0s(offsets, RATE, 4242)
+    chan = tch.Channelizer(TAPS, DECIM, offsets, RATE, n_in)
+    assert chan.full_table and chan.carrier.shape == (2, n_in, 2)
+    n_out = (n_in - TAPS.size) // DECIM + 1
+    car = np.concatenate([_mixer_carrier(o, RATE, n_in) for o in offsets])
+    want = np.asarray(freq_xlating_polyphase(
+        jnp.asarray(iq), jnp.asarray(to_planes(car)), jnp.asarray(ph), TAPS, DECIM,
+        jnp.asarray(to_planes(polyphase_spectra(TAPS, DECIM, n_out)))))
+    _close(chan(torch.from_numpy(iq), torch.from_numpy(ph)).numpy(), want)
+    raw = tconvert.host_bytes(iq, "ci2")
+    wire = twc.PackedWireChannelizer("ci2", TAPS, DECIM, offsets, RATE, n_in)
+    got = wire(torch.from_numpy(raw), torch.from_numpy(ph)).numpy()
+    _close(got, chan(tconvert.iq_from_bytes_ci2(torch.from_numpy(raw)),
+                     torch.from_numpy(ph)).numpy())
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tch.Channelizer(TAPS, 1000, offsets * 2, RATE, 80_000)
 
 
 def test_dispatch_takes_plain_version_only_on_cpu():
@@ -200,3 +220,23 @@ def test_probe_on_card(cuda):
     x = torch.randn(SHAPE, device=cuda)
     y = torch.randn(SHAPE, device=cuda)
     assert torch.equal(probe(x, y), probe_plain(x, y))
+
+
+@pytest.mark.gpu
+def test_full_table_kernel_matches_plain_on_card(cuda):
+    """K5 on the full-length table (no carrier period) against its plain
+    version, launched once through the module."""
+    from ais_tpu_torch import _build
+
+    offsets, n_in = (25e3 * np.sqrt(2), -25e3), 400_000
+    chan = tch.Channelizer(TAPS, DECIM, offsets, RATE, n_in, device=cuda)
+    assert chan.full_table and chan.carrier.shape == (2, n_in, 2)
+    ph = torch.from_numpy(_phase0s(offsets, RATE, 987_654_321)).to(cuda)
+    x = torch.from_numpy(_iq(n_in, 6)).to(cuda)
+    _build.reset_launch_counts()
+    got = chan(x, ph)
+    assert _build.launch_counts()["channelizer"] == 1
+    want = tch.freq_xlating_polyphase_plain(x, tch.rotate_carrier(chan.carrier, ph), chan.taps,
+                                            DECIM)
+    err = (got - want).abs()
+    assert bool((err <= 2e-5 * want.abs().max() + 2e-4 * want.abs()).all())

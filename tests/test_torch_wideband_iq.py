@@ -111,7 +111,8 @@ def test_state_round_trip_across_packages(run):
 def test_constructor_builds_channelizers_lazily():
     """A geometry K1 cannot take still makes a receiver: the complex
     path runs on K5, and cr1 bytes are decoded, then run on K5.  A
-    geometry no kernel covers raises only on the path that uses it."""
+    carrier with no period (an irrational offset) takes the full-length
+    table on every path that uses it, built at first use."""
     cfg = tw.WidebandConfig(offsets_hz=(-1e3, 1e3))
     rx = tw.WidebandReceiver(cfg, n_in=900_000, device="cpu")
     assert rx._channelizers == {}
@@ -121,23 +122,27 @@ def test_constructor_builds_channelizers_lazily():
 
     irr = tw.WidebandConfig(offsets_hz=(-25e3 * np.sqrt(2), 25e3))
     rx = tw.WidebandReceiver(irr, n_in=900_000, device="cpu")
-    for call in (lambda: rx.decode(np.zeros(rx.n_in, np.complex64)),
-                 lambda: rx.decode_wire(np.zeros(rx.n_in // 2, np.uint8), "ci2")):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            call()
-    assert rx.get_state()["pos"] == 0
+    assert rx.decode(np.zeros(rx.n_in, np.complex64)) == []
+    assert rx.decode_wire(np.zeros(rx.n_in // 2, np.uint8), "ci2") == []
+    assert rx._wire_route("cr1")[0] == "iq"
+    assert set(rx._channelizers) == {"iq", "ci2"}
+    assert all(m.full_table and m.carrier.shape[1] == rx.n_in
+               for m in rx._channelizers.values())
+    assert rx.get_state()["pos"] == 2 * rx.step_raw
     with pytest.raises(ValueError, match="complex64"):
         rx.device_step(np.zeros(10, np.complex64), 0)
 
 
 def test_overflow_raises_on_the_complex_path(run, caplog):
-    """K = 1 cannot hold a block's bursts: the step raises naming the
-    blocks, and with overflow_recovery off it is logged."""
+    """K = 1 cannot hold a block's bursts: the step re-demodulates the
+    overflowed blocks with a larger table and decodes the reference's
+    packets; with overflow_recovery off it is logged and packets drop."""
     cfg = run["pcfg"]._replace(
         demod=dataclasses.replace(run["pcfg"].demod, max_bursts_per_block=1))
     rx = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
-    with pytest.raises(tw.BurstTableOverflow, match="A.6"):
-        rx.decode(run["parts"][0])
+    got = rx.decode(run["parts"][0])
+    assert rx.overflow_blocks >= 1 and rx.recover_s > 0
+    assert _key(got) == _key(run["first"])
     rx = tw.WidebandReceiver(cfg._replace(overflow_recovery=False), n_in=run["n_in"],
                              device="cpu")
     with caplog.at_level("WARNING", logger="ais_tpu_torch"):
