@@ -38,9 +38,11 @@ pipeline/api.py, radio.py             the same names
 cli/ais_rx.py                         cli/ais_rx.py
 ====================================  ====================================
 
-The jax-free leaf modules of the reference (`ais_tpu.core.params`,
-`ais_tpu.ops.firdes`, `ais_tpu.decode`, `ais_tpu.native`, `ais_tpu.tx`,
-`ais_tpu.utils.cpm`, `ais_tpu.io`) are reused as they are.
+The port imports nothing of `ais_tpu`, not even its numpy-only leaf
+modules: it keeps its own copies under the same sub-package names
+(`core/params.py`, `ops/firdes.py`, `utils/bits.py`, `utils/cpm.py`,
+`decode/`, `tx/`, `io/`, `native/`), held field for field and bit for
+bit against the reference by the tests.
 """
 
 import torch

@@ -145,8 +145,9 @@ _I = ctypes.c_int
 WIRE_CHANNELIZER_CR1 = Kernel(
     "wire_channelizer_cr1",
     "ais_wire_channelizer_cr1",
-    # raw, carrier, taps, out, n_bytes, n_out, ntaps, decim, q, n_chan, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # raw, carrier, tap fragments, out, n_bytes, n_out, n_super, tile_words,
+    # decim, q, n_chan, unscale, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
 MATCHED_FILTER = Kernel(
     "matched_filter",

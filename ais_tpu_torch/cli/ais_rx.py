@@ -7,8 +7,8 @@ Port of `ais_tpu/cli/ais_rx.py` with the same options and output lines
 (one !AIVDM sentence a packet on stdout; `--meta` prefixes position,
 channel, correlation, carrier and power; `--decode` appends the parsed
 fields), plus `--device` (default cuda; `cpu` runs every kernel's plain
-version).  Sources and the rtl_tcp client are the reference's jax-free
-`ais_tpu.io` modules.
+version).  Sources and the rtl_tcp client are the port's own copies of the
+reference's (`ais_tpu_torch.io`).
 """
 
 from __future__ import annotations
@@ -58,9 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     options = build_parser().parse_args(argv)
-    from ais_tpu.core.params import DemodConfig
-    from ais_tpu.io.rtl_tcp import RtlTcpSource
-    from ais_tpu.io.sources import FileSource, open_source
+    from ais_tpu_torch.core.params import DemodConfig
+    from ais_tpu_torch.io.rtl_tcp import RtlTcpSource
+    from ais_tpu_torch.io.sources import FileSource, open_source
     from ais_tpu_torch.pipeline.radio import AisRadio
 
     src = open_source(options.source, options.rate, options.format,
@@ -90,7 +90,7 @@ def main(argv: list[str] | None = None) -> int:
                         f"corr={packet.corr_mag:.0f} f={packet.freq_est_hz:+.0f}Hz "
                         f"rssi={rssi_db:.1f}dBfs] {line}")
             if options.decode:
-                from ais_tpu.decode.fields import format_fields
+                from ais_tpu_torch.decode.fields import format_fields
 
                 line = f"{line}  {{{format_fields(packet.fields)}}}"
             print(line, flush=True)

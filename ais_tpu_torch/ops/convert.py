@@ -196,7 +196,7 @@ def cd1_bytes_from_ci1(ci1_bytes: np.ndarray, n_samples: int) -> np.ndarray:
 
 
 def _sigma_delta_ci1_numpy(iq: np.ndarray, scale: float) -> np.ndarray:
-    """Pure-numpy twin of `ais_tpu.native.sigma_delta_ci1` (slow)."""
+    """Pure-numpy twin of `ais_tpu_torch.native.sigma_delta_ci1` (slow)."""
     re = iq.real.astype(np.float64) * scale
     im = iq.imag.astype(np.float64) * scale
     bits = np.empty(2 * iq.size, np.uint8)  # I0 Q0 I1 Q1 ... transmission order
@@ -214,7 +214,7 @@ def _sigma_delta_ci1_numpy(iq: np.ndarray, scale: float) -> np.ndarray:
 
 
 def _sigma_delta_cr1_numpy(iq: np.ndarray, scale: float, a2: float = 2.0) -> np.ndarray:
-    """Pure-numpy twin of `ais_tpu.native.sigma_delta_cr1` (slow).
+    """Pure-numpy twin of `ais_tpu_torch.native.sigma_delta_cr1` (slow).
 
     All arithmetic is float32 in the C++ order of evaluation: the loop
     is decision-sensitive, so a float64 twin diverges from the native
@@ -269,7 +269,7 @@ def host_bytes(iq: np.ndarray, fmt: str, *, ci2_dither: float = 0.2,
     the native encoder when its library builds and the bit-identical
     numpy twin otherwise.
     """
-    from ais_tpu import native
+    from ais_tpu_torch import native
 
     if fmt in ("ci16", "cs16"):
         i = np.round(np.clip(iq.real, -1, 1 - 1 / 32768) * 32768).astype("<i2")

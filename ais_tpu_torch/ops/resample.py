@@ -19,7 +19,7 @@ import functools
 
 import numpy as np
 
-from ais_tpu.ops.firdes import low_pass_2
+from ais_tpu_torch.ops.firdes import low_pass_2
 
 
 @functools.lru_cache(maxsize=16)

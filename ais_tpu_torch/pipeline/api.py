@@ -23,8 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ais_tpu.core.params import DeframerConfig, DemodConfig, ReceiverConfig
-from ais_tpu.ops.firdes import low_pass
+from ais_tpu_torch.core.params import DeframerConfig, DemodConfig, ReceiverConfig
+from ais_tpu_torch.ops.firdes import low_pass
 from ais_tpu_torch.ops.fir import freq_xlating_fir_decimate, mixer_phase
 from ais_tpu_torch.ops.resample import PfbArbResampler
 from ais_tpu_torch.pipeline.host import PacketDeduper, decode_block_records
@@ -60,7 +60,7 @@ class BasebandReceiver:
                 f"demod window's frame capacity ({demod.max_frame_bytes} bytes at "
                 f"burst_len={demod.burst_len}): the extraction window would truncate "
                 f"long frames.  Scale the demod with "
-                f"ais_tpu.core.params.demod_for_max_frame({deframer.max_length_bytes}).")
+                f"ais_tpu_torch.core.params.demod_for_max_frame({deframer.max_length_bytes}).")
         self.device = torch.device(device)
         self.demod_cfg = demod
         self.deframer_cfg = deframer

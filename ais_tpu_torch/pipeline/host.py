@@ -5,9 +5,9 @@ Port of `ais_tpu/pipeline/host.py` (the wire path's
 `decode_block_records`), in numpy (it
 runs on the host after the device-to-host fetch, and the reference's
 module cannot be imported without jax).  All valid bursts of a fetch
-deframe in one native call (`ais_tpu.native.hdlc_deframe_packed_batch`)
+deframe in one native call (`ais_tpu_torch.native.hdlc_deframe_packed_batch`)
 when the native library builds; otherwise each burst goes through the
-reference's numpy deframer (`ais_tpu.decode.deframe`).
+numpy deframer (`ais_tpu_torch.decode.deframe`).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ais_tpu.core.params import DeframerConfig
+from ais_tpu_torch.core.params import DeframerConfig
 
 log = logging.getLogger("ais_tpu_torch")
 
@@ -35,13 +35,13 @@ class DecodedPacket:
 
     @property
     def nmea(self) -> str:
-        from ais_tpu.decode.nmea import frame_to_nmea
+        from ais_tpu_torch.decode.nmea import frame_to_nmea
 
         return frame_to_nmea(self.payload, self.designator)
 
     @property
     def fields(self) -> dict:
-        from ais_tpu.decode.fields import parse_fields
+        from ais_tpu_torch.decode.fields import parse_fields
 
         return parse_fields(self.payload)
 
@@ -77,16 +77,16 @@ class PacketDeduper:
 
 
 def native_available() -> bool:
-    """True when the reference's native host library (g++) loads."""
-    from ais_tpu import native
+    """True when the port's native host library (`native/`, g++) loads."""
+    from ais_tpu_torch import native
 
     return native.available()
 
 
 def _deframe_burst(burst_bits: np.ndarray, deframer: DeframerConfig):
     """Deframe one burst's valid bits -> [(payload, start_bit)]."""
-    from ais_tpu import native
-    from ais_tpu.decode.hdlc import deframe
+    from ais_tpu_torch import native
+    from ais_tpu_torch.decode.hdlc import deframe
 
     if native.available():
         return native.hdlc_deframe(
@@ -156,7 +156,7 @@ def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
 
     triples = None
     if native_available():
-        from ais_tpu import native
+        from ais_tpu_torch import native
 
         try:
             triples = native.hdlc_deframe_packed_batch(

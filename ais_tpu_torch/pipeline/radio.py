@@ -21,7 +21,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from ais_tpu.core.params import AIS_CENTER_HZ, DemodConfig, ReceiverConfig, dual_channel_configs
+from ais_tpu_torch.core.params import AIS_CENTER_HZ, DemodConfig, ReceiverConfig, dual_channel_configs
 from ais_tpu_torch.pipeline.api import ChannelReceiver
 from ais_tpu_torch.pipeline.host import suppress_image_ghosts
 
@@ -171,7 +171,7 @@ class AisRadio:
 
     def run(self, source, chunk_len: int = 1 << 20,
             on_packet: Callable | None = None) -> Iterator:
-        """Stream from a `SampleSource` (`ais_tpu.io.sources`), yielding
+        """Stream from a `SampleSource` (`ais_tpu_torch.io.sources`), yielding
         packets as they decode, then the flushed tail's."""
         self._source = source
         for chunk in source.chunks(chunk_len):

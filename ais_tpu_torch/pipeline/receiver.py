@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ais_tpu.core.params import BURST_GRID, DemodConfig
+from ais_tpu_torch.core.params import BURST_GRID, DemodConfig
 from ais_tpu_torch.ops.agc import feedforward_agc
 from ais_tpu_torch.ops.demod import quadrature_demod, slice_diff_invert
 from ais_tpu_torch.ops.framing import frame_overlap_big
@@ -76,7 +76,7 @@ def burst_table_geometry(cfg: DemodConfig) -> tuple[int, int]:
 
 def preamble_waveform(cfg: DemodConfig) -> np.ndarray:
     """The correlator's reference: GMSK of the NRZI'd training sequence."""
-    from ais_tpu.tx.gmsk import preamble_waveform as gmsk_preamble
+    from ais_tpu_torch.tx.gmsk import preamble_waveform as gmsk_preamble
 
     return gmsk_preamble(int(round(cfg.samples_per_symbol)), cfg.gmsk_bt)
 

@@ -48,7 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ais_tpu.core.params import AIS_BIT_RATE, DeframerConfig, DemodConfig
+from ais_tpu_torch.core.params import AIS_BIT_RATE, DeframerConfig, DemodConfig
 from ais_tpu_torch.ops.channelizer import Channelizer
 from ais_tpu_torch.ops.convert import (
     cd1_wire_nbytes,
@@ -140,7 +140,7 @@ class ReceiverConstants(NamedTuple):
 
 
 def channel_taps(cfg: WidebandConfig) -> np.ndarray:
-    from ais_tpu.ops.firdes import low_pass
+    from ais_tpu_torch.ops.firdes import low_pass
 
     return low_pass(1.0, cfg.input_rate, cfg.cutoff_hz, cfg.transition_hz)
 

@@ -2,7 +2,7 @@
 
 Port of `bench.py:_scene` and `bench.py:_content_parity`: a capture with
 a distinct AIS payload in every 26.67 ms TDMA slot on both channels,
-synthesized with the reference's modulator (`ais_tpu.tx`), and the rule
+synthesized with the port's copy of the modulator (`ais_tpu_torch.tx`), and the rule
 that scores decoded packets against the transmitted ones.  At 2.4 Msps
 it is the benchmark's scene sample for sample; at any other rate its
 slot grid scales with the rate, and `shift_hz` moves every channel as a
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ais_tpu.core.params import AIS_BIT_RATE
+from ais_tpu_torch.core.params import AIS_BIT_RATE
 
 SLOT_SAMPLES_2P4M = 64000  # 26.67 ms AIS TDMA slot at 2.4 Msps
 CHANNEL_RATE = 48000.0
@@ -33,8 +33,8 @@ def full_load_scene(cfg, n_in: int, n_core: int, seed: int = 7, shift_hz: float 
 
     Packets are confined to the call's core span `n_core` (= step_raw):
     a packet starting in the trailing halo belongs to the next step."""
-    from ais_tpu.tx import aivdm_payload_to_bytes
-    from ais_tpu.tx.scenario import Scenario, ScenarioPacket
+    from ais_tpu_torch.tx import aivdm_payload_to_bytes
+    from ais_tpu_torch.tx.scenario import Scenario, ScenarioPacket
 
     base = bytearray(aivdm_payload_to_bytes(BASE_PAYLOAD))
     rng = np.random.default_rng(seed)
@@ -70,11 +70,11 @@ def full_load_scene(cfg, n_in: int, n_core: int, seed: int = 7, shift_hz: float 
 def resampled_scene(rate: float, n_in: int, packets, noise: float) -> np.ndarray:
     """A capture at a rate that is no whole multiple of the bit rate (the
     250 ksps default): each channel's packets are modulated at 48 ksps
-    (5 samples a symbol, `ais_tpu.tx.scenario`), brought to `rate` by
+    (5 samples a symbol, `ais_tpu_torch.tx.scenario`), brought to `rate` by
     the streaming polyphase resampler, and mixed to their offset with a
     float64 phase; white noise of std `noise` a component is added once.
     Packet `start_sample`s are at `rate`."""
-    from ais_tpu.tx.scenario import Scenario, ScenarioPacket
+    from ais_tpu_torch.tx.scenario import Scenario, ScenarioPacket
     from ais_tpu_torch.ops.resample import PfbArbResampler
 
     up = rate / CHANNEL_RATE
@@ -124,7 +124,7 @@ def golden_capture(rate: float) -> np.ndarray:
     """1.25 s at `rate` holding BASE_PAYLOAD once on channel A (-25 kHz),
     24 000 channel samples (0.5 s) in, modulated at 48 ksps and
     resampled: decoded, it gives GOLDEN_SENTENCE."""
-    from ais_tpu.tx import aivdm_payload_to_bytes, make_packet_iq
+    from ais_tpu_torch.tx import aivdm_payload_to_bytes, make_packet_iq
     from ais_tpu_torch.ops.resample import pfb_arb_resample
 
     burst = make_packet_iq(aivdm_payload_to_bytes(BASE_PAYLOAD), 5)

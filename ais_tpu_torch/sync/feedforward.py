@@ -35,7 +35,7 @@ def _calibrate(sps_int: int, bt: float) -> float:
     """`delta` such that symbol centres sit at p = delta - psi*sps/(2 pi)
     (mod sps) for a measured tone phase psi, found by an eye-opening
     search on clean modulated data."""
-    from ais_tpu.tx.gmsk import modulate_bits
+    from ais_tpu_torch.tx.gmsk import modulate_bits
 
     rng = np.random.default_rng(12345)
     bits = rng.integers(0, 2, 600)

@@ -1,7 +1,7 @@
 """Coherent MLSE (Viterbi) GMSK demodulation, batched over bursts.
 
 Port of `ais_tpu/sync/mlse.py`.  The trellis tables are built once in
-numpy (`gmsk_trellis`, from the jax-free `ais_tpu.utils.cpm`); a batch
+numpy (`gmsk_trellis`, from `ais_tpu_torch.utils.cpm`); a batch
 of N bursts then goes through:
 
   - `burst_frames`: interval-aligned (N, n_sym, sps) frames, each
@@ -41,7 +41,7 @@ class GmskTrellis(NamedTuple):
 
 
 def _training_levels(n: int = 24) -> np.ndarray:
-    from ais_tpu.tx.frame import TRAINING_BITS, nrzi_encode
+    from ais_tpu_torch.tx.frame import TRAINING_BITS, nrzi_encode
 
     return nrzi_encode(TRAINING_BITS[:n], initial_level=1)
 
@@ -52,8 +52,8 @@ def gmsk_trellis(sps: int, bt: float = 0.4) -> GmskTrellis:
     waveforms, incoming transitions, the training sequence's paths and
     the interval grid's offset calibrated against the package's own
     modulator."""
-    from ais_tpu.tx.gmsk import modulate_bits
-    from ais_tpu.utils.cpm import gmsk_frequency_pulse, make_cpm_signals
+    from ais_tpu_torch.tx.gmsk import modulate_bits
+    from ais_tpu_torch.utils.cpm import gmsk_frequency_pulse, make_cpm_signals
 
     d = make_cpm_signals(M=2, h_num=1, h_den=2, sps=sps, pulse=gmsk_frequency_pulse(sps, bt))
     ns = d.n_states

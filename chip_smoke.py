@@ -11,14 +11,18 @@ the `ais_rx` receive path (`AisRadio` in both topologies, MLSE,
 overflow recovery, the CLI), in phases, one result line each:
 
   1. environment: the card (nvidia-smi name and power limit), torch and
-     CUDA versions, the TF32 flags, the native host library;
+     CUDA versions, the TF32 flags, and whether the native host library
+     (the deframer) loaded: the run fails if it did not;
   2. build: nvcc builds the kernels of `ais_tpu_torch/csrc/` (sm_90a);
   3. probe: K6 (2x + y on one tile) against its plain version;
   4. K1 (cr1 wire channelizer), K2 (matched filter), K3 (ci1 wire
      channelizer), K4 (ci2, ci4 wire channelizers) and K5 (float
      channelizer), each against its plain PyTorch version at the
-     paths' shapes, with the median time of each; k5_full: K5 with the
-     full-length carrier table of a 50 ppm radio at the bench n_in;
+     paths' shapes, with the median time of each, its bound (the least
+     time the card could take) and a library call's time where one
+     PyTorch call computes the same function; K1 also at 1, 3 and 4
+     channels, K2 also at rows off its tile and odd tap counts; k5_full: K5 with the full-length carrier table of a 50
+     ppm radio at the bench n_in; fir_only: the channelizers' yardstick;
   5. main path (cr1): a warm-up decode whose packets must match the
      transmitted ones (content parity 1.0), then timed steps, then the
      time of each stage;
@@ -50,6 +54,17 @@ failed check raises, so the script exits non-zero and prints no
 result.  The second-to-last line is a JSON object with one entry per
 kernel; the last line is {"ok": true, "device": {...}}.  It needs one
 CUDA device and exits non-zero without one.
+
+A kernel's row: `ms` is the median device time of one launch through
+its wrapper, one event pair a launch (so it includes the wrapper's host
+time before the launch), `ms_back_to_back` the time a launch of many in
+a row; `plain_ms` the plain PyTorch version; `bound_ms` the larger of
+its operations over the card's fp32 rate outside the tensor cores and
+its bytes (each input once, each output once) over the memory rate,
+`bound_by` which of the two; `library_ms` one PyTorch call for the same
+function (`library_call` names it; for the channelizers it is the FIR
+alone, less than the kernel's function); `launches_per_step` the
+launches a step on the path that uses the kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +82,12 @@ from pathlib import Path
 import numpy as np
 
 N_BLOCKS = 96
+# Published peaks of an H100 SXM: fp32 outside the tensor cores, dense
+# fp16 in them, device memory.
+PEAK_FP32_FLOPS = 67e12
+PEAK_FP16_TENSOR_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+FIR_ONLY = "FIR only: F.conv1d(stride=D) on pre-mixed planes (less than the kernel's function)"
 TIMED_STEPS = 5
 PATH_STEPS = 3  # timed steps of the complex path and of each wire format
 SEED = 7
@@ -138,6 +159,45 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_back_to_back(fn, launches: int, reps: int = 5) -> float:
+    """Median device time of one `fn()` among `launches` in a row between
+    one event pair: the queue stays full, so no host time is in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the fp32 rate and the bytes over the memory rate."""
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def channelizer_bound(n_in: int, n_out: int, ntaps: int, n_chan: int, in_bytes: float,
+                      table_entries: int, mix_flop_per_sample: int) -> dict:
+    """A channelizer's work: 2 real FIRs a channel (4 flop a tap and
+    output), the mix (6 flop a complex sample and channel; none for K1,
+    whose samples are +-1), and input, carrier table, taps and output
+    once each."""
+    flop = 4.0 * n_chan * ntaps * n_out + mix_flop_per_sample * n_chan * n_in
+    nbytes = in_bytes + 8.0 * n_chan * table_entries + 4.0 * ntaps + 8.0 * n_chan * n_out
+    return bound(flop, nbytes)
+
+
 def phase_environment() -> dict:
     import torch
 
@@ -165,6 +225,9 @@ def phase_environment() -> dict:
     log("environment", **env)
     if env["matmul_allow_tf32"] or env["cudnn_allow_tf32"]:
         raise RuntimeError("TF32 is on; the port requires full fp32")
+    if not env["native_available"]:
+        # A step timed on the numpy deframer would not be the card's path.
+        raise RuntimeError("the native host library (deframer) did not build or load (needs g++)")
     return env
 
 
@@ -197,12 +260,28 @@ def phase_probe() -> dict:
         "name": "probe", "route": "cuda", "source": "ais_tpu_torch/csrc/probe.cu",
         "replaces": "tools/tpu_pallas_probe.py:37", "max_abs_err": max_err,
         "ms": cuda_ms(lambda: probe(x, y), 50),
+        "ms_back_to_back": cuda_ms_back_to_back(lambda: probe(x, y), 200),
         "plain_ms": cuda_ms(lambda: probe_plain(x, y), 50), "launches": launches,
+        **bound(2.0 * x.numel(), 12.0 * x.numel()),
+        "library_ms": cuda_ms(lambda: torch.add(y, x, alpha=2), 50),
+        "library_call": "torch.add(y, x, alpha=2)",
+        # No receive path launches the probe.
+        "launches_per_step": 0,
     }
     log("probe", shape=list(SHAPE), tolerance="exact (2x + y in fp32)", **row)
     if max_err != 0.0 or launches != 1:
         raise RuntimeError(f"K6 disagrees with 2x + y: max|err| {max_err}, launches {launches}")
     return row
+
+
+def channelizer_error(got, ref) -> tuple[float, bool]:
+    """max |err| of a channelizer against its plain version, and whether
+    every output is finite and within TOLERANCE."""
+    import torch
+
+    err = (got - ref).abs()
+    limit = 2e-5 * ref.abs().max() + 2e-4 * ref.abs()
+    return float(err.max()), bool(torch.isfinite(got).all()) and bool((err <= limit).all())
 
 
 def hold_channelizer(phase: str, kernel, plain, row: dict, **fields) -> dict:
@@ -212,13 +291,11 @@ def hold_channelizer(phase: str, kernel, plain, row: dict, **fields) -> dict:
 
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err = (got - ref).abs()
-    bound = 2e-5 * ref.abs().max() + 2e-4 * ref.abs()
-    max_err = float(err.max())
-    ok = bool(torch.isfinite(got).all()) and bool((err <= bound).all())
-    del got, ref, err, bound
+    max_err, ok = channelizer_error(got, ref)
+    del got, ref
     row = {**row, "route": "cuda", "max_abs_err": max_err,
-           "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5)}
+           "ms": cuda_ms(kernel, 20), "ms_back_to_back": cuda_ms_back_to_back(kernel, 20),
+           "plain_ms": cuda_ms(plain, 5)}
     log(phase, tolerance=TOLERANCE, within=ok, **fields, **row)
     if not ok:
         raise RuntimeError(f"{row['name']} disagrees with its plain version: max|err| {max_err}")
@@ -239,29 +316,83 @@ def random_phase0s(cfg, rng):
     return phase0s_at(cfg, int(rng.integers(0, 1 << 40)))
 
 
+K1_SMALL_N_IN = 400_000
+K1_OTHER_OFFSETS = ((-25e3,), (-25e3, 25e3, 0.0), (-25e3, 25e3, 0.0, 50e3))
+
+
 def phase_k1(cfg, n_in: int) -> dict:
+    """K1 at the bench geometry on random wire bytes, through the module's
+    folded taps as the main path launches it; then at 1, 3 and 4
+    channels (the kernel's other column widths) at a small n_in."""
     import torch
 
     from ais_tpu_torch.ops.wire_channelizer import (
-        WireChannelizer, rotate_carrier, wire_channelizer_cr1,
+        WireChannelizer, n_column_tiles, n_super_steps, rotate_carrier, wire_channelizer_cr1,
         wire_channelizer_cr1_plain,
     )
     from ais_tpu_torch.pipeline.wideband import channel_taps
 
     dev = torch.device("cuda")
     taps = channel_taps(cfg)
+    rng = np.random.default_rng(SEED)
+    for offsets in K1_OTHER_OFFSETS:
+        small = WireChannelizer(taps, cfg.decimation, offsets, cfg.input_rate, K1_SMALL_N_IN,
+                                device=dev)
+        raw = torch.from_numpy(rng.integers(0, 256, K1_SMALL_N_IN // 8, dtype=np.uint8)).to(dev)
+        ph = torch.from_numpy(rng.uniform(0, 2 * math.pi, len(offsets)).astype(np.float32)).to(dev)
+        got = small(raw, ph)
+        ref = wire_channelizer_cr1_plain(raw, rotate_carrier(small.carrier, ph), small.taps,
+                                         small.decim, K1_SMALL_N_IN)
+        max_err, ok = channelizer_error(got, ref)
+        log("k1_channels", n_chan=len(offsets), n_in=K1_SMALL_N_IN, tolerance=TOLERANCE,
+            max_abs_err=max_err, within=ok)
+        if not ok:
+            raise RuntimeError(f"K1 at {len(offsets)} channels disagrees with its plain version")
     chan = WireChannelizer(taps, cfg.decimation, cfg.offsets_hz, cfg.input_rate,
                            n_in, device=dev)
-    rng = np.random.default_rng(SEED)
     raw = torch.from_numpy(rng.integers(0, 256, n_in // 8, dtype=np.uint8)).to(dev)
     car = rotate_carrier(chan.carrier, phase0s_at(cfg, 123_456_789))
-    return hold_channelizer(
+    n_chan, q = car.shape[0], car.shape[1]
+    # The tensor-core passes the kernel really runs: one m16n8k16 (4096
+    # flop) for every 16 outputs, k-step of the padded taps and n-tile.
+    mma_flop = 4096.0 * -(-chan.n_out // 16) * n_super_steps(taps.size) * 8 * n_column_tiles(n_chan)
+    row = hold_channelizer(
         "k1",
-        lambda: wire_channelizer_cr1(raw, car, chan.taps, decim=chan.decim, n_in=n_in),
+        lambda: wire_channelizer_cr1(raw, car, chan.taps, decim=chan.decim, n_in=n_in,
+                                     folded=chan.folded),
         lambda: wire_channelizer_cr1_plain(raw, car, chan.taps, chan.decim, n_in),
         {"name": "wire_channelizer_cr1", "source": "ais_tpu_torch/csrc/wire_channelizer.cu",
-         "replaces": "ais_tpu/ops/pallas_fir.py:630"},
-        shape=[len(cfg.offsets_hz), chan.n_out], n_in=n_in)
+         "replaces": "ais_tpu/ops/pallas_fir.py:630",
+         **channelizer_bound(n_in, chan.n_out, taps.size, n_chan, n_in / 8, q, 0),
+         "tensor_core_flop": mma_flop},
+        shape=[n_chan, chan.n_out], n_in=n_in)
+    # The bound is the fp32 rate outside the tensor cores (the contract is
+    # an fp32 result); the sum itself runs in them, in fp16 passes.
+    row["tensor_core_share_of_fp16_peak"] = (
+        mma_flop / PEAK_FP16_TENSOR_FLOPS * 1e3 / row["ms_back_to_back"])
+    return row
+
+
+def phase_fir_only(cfg, n_in: int) -> float:
+    """The channelizers' yardstick: the strided FIR alone as one
+    `F.conv1d(stride=D)` over pre-mixed planes (re and im of every
+    channel), at the bench geometry.  No decode and no mix: less than
+    any channelizer's function.  Timed here, called nowhere in the port."""
+    import torch
+
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    taps = torch.from_numpy(channel_taps(cfg)).to("cuda")
+    planes = 2 * len(cfg.offsets_hz)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randn((1, planes, n_in), device="cuda", generator=gen)
+    weight = taps.expand(planes, 1, -1).contiguous()
+    ms = cuda_ms(lambda: torch.nn.functional.conv1d(x, weight, stride=cfg.decimation,
+                                                    groups=planes), 5)
+    log("fir_only", call=FIR_ONLY, planes=planes, n_in=n_in, ntaps=taps.numel(), library_ms=ms)
+    del x
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_k3_k4_k5(cfg, n_in: int) -> list:
@@ -295,7 +426,9 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
             lambda: wire_channelizer_packed(fmt, raw, car, taps, decim=decim, n_in=n_in),
             lambda: wire_channelizer_packed_plain(fmt, raw, car, taps, decim),
             {"name": f"wire_channelizer_{fmt}", "source": "ais_tpu_torch/csrc/channelizer.cu",
-             "replaces": "ais_tpu/ops/pallas_fir.py" + replaces},
+             "replaces": "ais_tpu/ops/pallas_fir.py" + replaces,
+             **channelizer_bound(n_in, chan.n_out, taps.numel(), shape[0], raw.numel(),
+                                 car.shape[1], 6)},
             shape=shape, n_in=n_in, fmt=fmt))
         del raw
     x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
@@ -306,7 +439,9 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
         lambda: freq_xlating_polyphase(x, car, taps, decim=decim),
         lambda: freq_xlating_polyphase_plain(x, car, taps, decim),
         {"name": "channelizer", "source": "ais_tpu_torch/csrc/channelizer.cu",
-         "replaces": "ais_tpu/ops/pallas_fir.py:171"},
+         "replaces": "ais_tpu/ops/pallas_fir.py:171",
+         **channelizer_bound(n_in, chan.n_out, taps.numel(), shape[0], 8.0 * n_in,
+                             car.shape[1], 6)},
         shape=shape, n_in=n_in, input_mb=x.numel() * 8 / 1e6))
     del x
     torch.cuda.empty_cache()
@@ -347,17 +482,52 @@ def phase_k2() -> dict:
     max_err = float((corr - rc).abs().max())
     mag2_err = float(((mag2 - (corr.real ** 2 + corr.imag ** 2)).abs()
                       / (mag2.abs() + 1e-30)).max())
+    # The plain version's conv1d is cuDNN's in fp32; the same function in
+    # float64 says how much of max_err is the kernel's own.
+    ref64, _ = matched_filter_plain(xt.to(torch.complex128), mf.taps_conj.to(torch.complex128))
+    err64 = float((corr.to(torch.complex128) - ref64).abs().max())
+    del ref64
     ok = bool(torch.isfinite(corr).all()) and max_err <= 2e-4 and mag2_err <= 1e-6
+    # Rows that end inside a block's tile of 1024 outputs, fill one exactly
+    # or are shorter than one, and tap counts that are no multiple of the
+    # 8 a thread takes at a time: against the float64 plain version.
+    for rows, length, ntap in ((3, 1200, 140), (2, 1163, 140), (3, 700, 140), (3, 1300, 53),
+                               (2, 5000, 7)):
+        xs = torch.from_numpy((rng.normal(size=(rows, length))
+                               + 1j * rng.normal(size=(rows, length))).astype(np.complex64)).to(dev)
+        pc = mf.taps_conj[:ntap].contiguous()
+        got_c, got_m = matched_filter(xs, pc)
+        want_c, _ = matched_filter_plain(xs.to(torch.complex128), pc.to(torch.complex128))
+        err = float((got_c.to(torch.complex128) - want_c).abs().max())
+        exact = torch.equal(got_m, got_c.real * got_c.real + got_c.imag * got_c.imag)
+        log("k2_shapes", shape=[rows, length], taps=ntap, tolerance="atol 2e-4 against float64",
+            max_abs_err=err, mag2_exact=exact)
+        if got_c.shape != want_c.shape or err > 2e-4 or not exact:
+            raise RuntimeError(f"K2 at {(rows, length)}, {ntap} taps disagrees: max|err| {err}")
     t_kernel = cuda_ms(kernel, 50)
     t_plain = cuda_ms(plain, 20)
+    # The library call: the one conv1d of the plain version, on planes
+    # and weights stacked beforehand.
+    tc = mf.taps_conj
+    weight = torch.stack([torch.stack([tc.real, -tc.imag]), torch.stack([tc.imag, tc.real])])
+    planes = torch.stack([xt.real, xt.imag], dim=1)
+    n_out, taps_len = corr.shape[1], tc.numel()
     row = {
         "name": "matched_filter", "route": "cuda",
         "source": "ais_tpu_torch/csrc/matched_filter.cu",
         "replaces": "ais_tpu/ops/pallas_corr.py:145",
-        "max_abs_err": max_err, "ms": t_kernel, "plain_ms": t_plain,
+        "max_abs_err": max_err, "ms": t_kernel,
+        "ms_back_to_back": cuda_ms_back_to_back(kernel, 100), "plain_ms": t_plain,
+        # 4 FMAs a tap and output, 3 flop for |corr|^2; x and the taps
+        # read, corr and mag2 written.
+        **bound((8.0 * taps_len + 3.0) * batch * n_out,
+                8.0 * batch * n + 8.0 * taps_len + 12.0 * batch * n_out),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.conv1d(planes, weight), 20),
+        "library_call": "F.conv1d (TF32 off) on stacked planes; |corr|^2 not included",
     }
     log("k2", shape=list(corr.shape), tolerance="corr atol 2e-4; mag2 = |corr|^2 rtol 1e-6",
-        mag2_rel_err=mag2_err, within=ok, launches=_build.MATCHED_FILTER.launches, **row)
+        mag2_rel_err=mag2_err, max_abs_err_vs_float64=err64, within=ok,
+        launches=_build.MATCHED_FILTER.launches, **row)
     if not ok:
         raise RuntimeError(f"K2 disagrees with its plain version: max|err| {max_err}")
     return row
@@ -396,10 +566,11 @@ def phase_main_path(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> di
         n_found.append(len(rx.decode_wire(wire, "cr1")))
         step_s.append(time.perf_counter() - t0)
     launches = _build.launch_counts()
+    steps = 1 + TIMED_STEPS
     st = rx.collect_stats
     med = statistics.median(step_s)
     out = {
-        "card": card, "n_in": rx.n_in, "step_raw": rx.step_raw,
+        "card": card, "n_in": rx.n_in, "step_raw": rx.step_raw, "steps": steps,
         "blocks": rx.n_blocks, "tx_packets": len(tx_packets),
         "decoded_warmup": len(found), "decoded_timed": n_found,
         "content_parity": parity, "overflow_blocks": rx.overflow_blocks,
@@ -416,7 +587,9 @@ def phase_main_path(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> di
         raise RuntimeError(f"content parity {parity} != 1.0")
     if rx.overflow_blocks:
         raise RuntimeError(f"{rx.overflow_blocks} blocks overflowed")
-    path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+    on_path = path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+    if any(n != steps for n in on_path.values()):
+        raise RuntimeError(f"K1 and K2 should launch once a step: {on_path} in {steps} steps")
     if min(n_found) != max(n_found) or n_found[0] < len(tx_packets):
         raise RuntimeError(f"timed steps decoded {n_found} packets")
     log("stages", card=card, **stage_breakdown(rx, wire))
@@ -612,7 +785,7 @@ def stage_breakdown(rx, wire: np.ndarray, reps: int = 5) -> dict:
 
 
 class ArraySource:
-    """An in-memory capture as an `ais_tpu.io.sources.SampleSource`."""
+    """An in-memory capture as an `ais_tpu_torch.io.sources.SampleSource`."""
 
     def __init__(self, iq: np.ndarray, sample_rate: float):
         self.iq = iq
@@ -651,12 +824,16 @@ def phase_k5_full(cfg, n_in: int, row: dict) -> None:
         lambda: freq_xlating_polyphase(x, car, chan.taps, decim=chan.decim),
         lambda: freq_xlating_polyphase_plain(x, car, chan.taps, chan.decim),
         {"name": "channelizer", "source": "ais_tpu_torch/csrc/channelizer.cu",
-         "replaces": "ais_tpu/ops/pallas_fir.py:171"},
+         "replaces": "ais_tpu/ops/pallas_fir.py:171",
+         **channelizer_bound(n_in, chan.n_out, chan.taps.numel(), car.shape[0], 8.0 * n_in,
+                             car.shape[1], 6)},
         shape=[len(cfg.offsets_hz), chan.n_out], n_in=n_in, offsets_hz=list(shifted.offsets_hz),
         table_mb=chan.carrier.numel() * 4 / 1e6,
         rotate_ms=cuda_ms(lambda: rotate_carrier(chan.carrier, ph), 5))
-    row.update(full_table_ms=full["ms"], full_table_plain_ms=full["plain_ms"],
-               full_table_max_abs_err=full["max_abs_err"])
+    row.update(full_table_ms=full["ms"], full_table_ms_back_to_back=full["ms_back_to_back"],
+               full_table_plain_ms=full["plain_ms"],
+               full_table_max_abs_err=full["max_abs_err"],
+               full_table_bound_ms=full["bound_ms"], full_table_bound_by=full["bound_by"])
     del x, car, chan
     torch.cuda.empty_cache()
 
@@ -913,12 +1090,9 @@ def phase_ais_rx(card: str) -> dict:
 
 def phase_scene(cfg, n_in: int):
     """The full-load scene of one step, synthesized once for every path."""
-    from ais_tpu_torch.pipeline.host import native_available
     from ais_tpu_torch.pipeline.wideband import wideband_geometry
     from ais_tpu_torch.scene import full_load_scene
 
-    if not native_available():
-        raise RuntimeError("the native host library did not build (needs g++)")
     _, n_blocks, core_len = wideband_geometry(cfg, n_in)
     t0 = time.perf_counter()
     iq, tx_packets = full_load_scene(cfg, n_in, n_blocks * core_len * cfg.decimation,
@@ -935,11 +1109,20 @@ def main() -> int:
     cfg, n_in = bench_geometry()
     rows += [phase_k1(cfg, n_in), phase_k2(), *phase_k3_k4_k5(cfg, n_in)]
     phase_k5_full(cfg, n_in, rows[-1])
+    fir_only_ms = phase_fir_only(cfg, n_in)
     iq, tx_packets = phase_scene(cfg, n_in)
     card = env["card"]
-    paths = [phase_main_path(cfg, n_in, card, iq, tx_packets)["launches"],
-             phase_complex_iq(cfg, n_in, card, iq, tx_packets)["launches"],
-             *phase_wire_formats(cfg, n_in, card, iq, tx_packets).values(),
+    main_path = phase_main_path(cfg, n_in, card, iq, tx_packets)
+    complex_path = phase_complex_iq(cfg, n_in, card, iq, tx_packets)["launches"]
+    formats = phase_wire_formats(cfg, n_in, card, iq, tx_packets)
+    # Launches a step on the path that uses each kernel: the cr1 path's
+    # counts over its steps; the other paths' counts are of one step.
+    per_step = {k: main_path["launches"][k] / main_path["steps"]
+                for k in ("wire_channelizer_cr1", "matched_filter")}
+    per_step["channelizer"] = complex_path["channelizer"]
+    for fmt in ("ci1", "ci2", "ci4"):
+        per_step[f"wire_channelizer_{fmt}"] = formats[fmt][f"wire_channelizer_{fmt}"]
+    paths = [main_path["launches"], complex_path, *formats.values(),
              phase_radio_wideband_ppm(card, iq, tx_packets),
              phase_mlse(cfg, n_in, card, iq, tx_packets),
              phase_overflow(cfg, card, iq, tx_packets)]
@@ -950,6 +1133,9 @@ def main() -> int:
     for row in rows:
         if row["name"] != "probe":
             row["launches"] = sum(counts.get(row["name"], 0) for counts in paths)
+            row["launches_per_step"] = per_step[row["name"]]
+        if "channelizer" in row["name"]:
+            row["library_ms"], row["library_call"] = fir_only_ms, FIR_ONLY
     if min(row["launches"] for row in rows) <= 0:
         raise RuntimeError(f"a kernel was never launched: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -80,3 +80,55 @@ def test_kernel_matches_plain_on_card(cuda, signal, preamble):
     want_c, _ = matched_filter_plain(x, pc)
     assert float((corr - want_c).abs().max()) <= 2e-4
     assert torch.equal(mag2, corr.real * corr.real + corr.imag * corr.imag)
+
+
+@pytest.mark.parametrize("n,taps_len", [(1024 + 139 + 37, 140), (2 * 1024 + 139, 140),
+                                         (700, 140), (1300, 53)])
+def test_row_lengths_off_the_kernel_tile(preamble, n, taps_len):
+    """Row lengths that leave a partial, an exact and less than one tile
+    of the kernel (1024 outputs a block: 8 a thread, 128 threads), and a
+    tap count that is no multiple of 8: through the wrapper on the CPU,
+    against the definition."""
+    rng = np.random.default_rng(n)
+    x = ((rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))) * 0.1).astype(np.complex64)
+    p = preamble[:taps_len]
+    x[1, n - taps_len - 3: n - 3] += p
+    corr, mag2 = MatchedFilter(p)(torch.from_numpy(x))
+    assert corr.shape == mag2.shape == (2, n - taps_len + 1)
+    want = np.stack([np.correlate(row.astype(np.complex128), p.astype(np.complex128),
+                                  mode="valid") for row in x])
+    np.testing.assert_allclose(corr.numpy(), want, atol=2e-4)
+    assert int(np.argmax(mag2.numpy()[1])) == n - taps_len - 3
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """The launch path's checks, reached without a card: the wrapper's
+    CUDA branch on CPU tensors must raise before any launch."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops.matched_filter import _matched_filter_cuda
+
+    before = _build.MATCHED_FILTER.launches
+    pc = torch.zeros(140, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="complex64"):
+        _matched_filter_cuda(torch.zeros(2, 1000), pc)
+    with pytest.raises(ValueError, match="complex64"):
+        _matched_filter_cuda(torch.zeros(1000, dtype=torch.complex64), pc)
+    with pytest.raises(ValueError, match="1-D complex64"):
+        _matched_filter_cuda(torch.zeros(2, 1000, dtype=torch.complex64), pc.reshape(2, 70))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        _matched_filter_cuda(torch.zeros(2, 100, dtype=torch.complex64), pc)
+    assert _build.MATCHED_FILTER.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,taps_len", [(1024 + 139 + 37, 140), (700, 140), (1300, 53), (5000, 7)])
+def test_kernel_matches_plain_off_the_tile_on_card(cuda, preamble, n, taps_len):
+    rng = np.random.default_rng(n)
+    x = ((rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))) * 0.1).astype(np.complex64)
+    xt = torch.from_numpy(x).to(cuda)
+    pc = torch.from_numpy(np.conj(preamble[:taps_len])).to(cuda)
+    corr, mag2 = matched_filter(xt, pc)
+    want_c, _ = matched_filter_plain(xt, pc)
+    assert corr.shape == want_c.shape
+    assert float((corr - want_c).abs().max()) <= 2e-4
+    assert torch.equal(mag2, corr.real * corr.real + corr.imag * corr.imag)

@@ -257,14 +257,16 @@ def test_wire_contract_checks():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, import with jax
-    blocked, and no source file of the port imports jax."""
+    """Every module of the port, and chip_smoke.py, import with jax and
+    the JAX package (`ais_tpu`) blocked, and no source file of the port
+    imports either (tests/test_torch_standalone.py drives more)."""
     code = (
         "import sys, importlib, pkgutil\n"
+        "BLOCKED = ('jax', 'jaxlib', 'ais_tpu')\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
-        "            raise ImportError('jax is blocked')\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(name + ' is blocked')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import ais_tpu_torch\n"
         "for m in pkgutil.walk_packages(ais_tpu_torch.__path__, 'ais_tpu_torch.'):\n"
@@ -273,7 +275,7 @@ def test_port_imports_without_jax():
         "chip_smoke.bench_geometry()\n"
         "import ais_tpu_torch.cli.ais_rx as cli\n"
         "cli.build_parser().parse_args(['-s', 'x.cf32'])\n"
-        "assert not [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "assert not [k for k in sys.modules if k.split('.')[0] in BLOCKED]\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -284,4 +286,4 @@ def test_port_imports_without_jax():
         for line in src.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] == "jax"), (src, line)
+                        and words[1].split(".")[0] in ("jax", "jaxlib", "ais_tpu")), (src, line)
