@@ -157,8 +157,8 @@ MATCHED_FILTER = Kernel(
 )
 _L = ctypes.c_longlong
 # csrc/channelizer.cu: in, carrier, taps, out, n_in, n_out, ntaps, decim,
-# q, n_chan, threads an output, stream.
-_CHANNELIZER_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]
+# q, n_chan, outputs a thread, outputs a tile, threads a block, stream.
+_CHANNELIZER_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 CHANNELIZER = Kernel("channelizer", "ais_channelizer_f32", _CHANNELIZER_ARGS)
 WIRE_CHANNELIZER_CI1 = Kernel("wire_channelizer_ci1", "ais_wire_channelizer_ci1",
                               _CHANNELIZER_ARGS)

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import functools
 from fractions import Fraction
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,16 +50,28 @@ from ais_tpu_torch import _build
 from ais_tpu_torch.ops.fir import fir_polyphase, mixer_carrier
 
 MAX_CHANNELS = 4
-# The kernel's block: THREADS threads, G of them share one output (each
-# sums every G-th tap, then a warp shuffle adds the G partial sums), so
-# a block covers THREADS / G outputs.  The tile's mixed samples, for
-# every channel, and the taps are staged in shared memory; G grows (the
-# tile shrinks) until that fits the 227 KB a block may opt into.
-THREADS = 256
-GROUPS = (4, 8, 16, 32)
+# The kernel's design (csrc/channelizer.cu has the full note).  In
+# polyphase form, k = j*D + p, the sum is for each phase p a stride-1 FIR
+# of J = ceil(ntaps / D) taps over the rows (of D samples) of the mixed
+# input.  A block stays on its multiprocessor and takes tile after tile
+# of T outputs: it stages the tile's mixed rows in shared memory; a
+# thread owns one phase and R consecutive outputs (item = group*D + p),
+# walks the rows in chunks of R with the taps in a window of 2R
+# registers, so one shared-memory load of a sample feeds R FMAs a
+# component; the D partial sums of an output then meet in shared memory
+# and are added in phase order.  What bounds it: the fp32 FMA rate; at R = 8
+# and two channels 32 of a row's 34 operations are FMAs, and the taps
+# padded to whole chunks cost another tenth.  What holds it at 40 % of
+# that bound on an H100: the walk's shared-memory loads, which overlap
+# the FMAs only in part, and the prologue (a quarter of the time).
+# `kernel_plan` picks R, T and the threads of a block; the functions
+# below it are the kernel's index arithmetic, which the CPU tests walk
+# in numpy.
+MAX_THREADS = 768     # 24 warps: the same count on each of an SM's 4 schedulers
+ALIGN = 16           # a tile is staged from a sample index that is a multiple
+MIN_PERIOD = 16      # the kernel wraps the carrier index once a 16-sample unit
+OUTPUTS_A_THREAD = (8, 4, 1)
 MAX_SMEM_BYTES = 232_448
-# Two blocks a streaming multiprocessor when the tile allows it.
-TARGET_SMEM_BYTES = 113_000
 
 UNSUPPORTED_HINT = (
     "no channelizer kernel covers this geometry: more than 4 channels, or "
@@ -135,20 +148,97 @@ def n_out(n_in: int, ntaps: int, decim: int) -> int:
     return (n_in - ntaps) // decim + 1
 
 
-def smem_bytes(group: int, ntaps: int, decim: int, n_chan: int) -> int:
-    """Shared memory of one block: the tile's mixed samples (float2, every
-    channel) and the taps."""
-    tile = THREADS // group
-    return n_chan * ((tile - 1) * decim + ntaps) * 8 + ntaps * 4
+class Plan(NamedTuple):
+    """How the kernel is launched for one geometry."""
+    outputs: int     # R: consecutive outputs a thread
+    tile: int        # T: outputs a block, a multiple of R
+    threads: int     # threads a block, a multiple of 32
+    smem: int        # bytes of shared memory a block
 
 
-def kernel_group(ntaps: int, decim: int, n_chan: int) -> int | None:
-    """Threads per output for this geometry (None: no tile fits)."""
-    fits = [g for g in GROUPS if smem_bytes(g, ntaps, decim, n_chan) <= MAX_SMEM_BYTES]
-    if not fits:
-        return None
-    small = [g for g in fits if smem_bytes(g, ntaps, decim, n_chan) <= TARGET_SMEM_BYTES]
-    return (small or fits)[0]
+def tap_chunks(ntaps: int, decim: int, outputs: int) -> int:
+    """Jc: the J = ceil(ntaps / D) tap rows in chunks of R."""
+    return -(-(-(-ntaps // decim)) // outputs)
+
+
+def stage_len(tile: int, ntaps: int, decim: int, outputs: int) -> int:
+    """Samples a block stages a channel: the tile's T + Jc*R rows, the
+    up to ALIGN - 1 samples before them, in whole 16-sample units."""
+    rows = tile + tap_chunks(ntaps, decim, outputs) * outputs
+    return -(-(ALIGN + rows * decim) // ALIGN) * ALIGN
+
+
+def n_items(tile: int, decim: int, outputs: int) -> int:
+    """(phase, output group) pairs of a tile: one a thread and pass."""
+    return tile // outputs * decim
+
+
+def smem_bytes(outputs: int, tile: int, threads: int, ntaps: int, decim: int,
+               n_chan: int) -> int:
+    """Shared memory of one block: the mixed samples (float2, channels
+    interleaved) and the padded taps; the partial sums take the samples'
+    place when one pass of the threads covers the tile, and their own
+    room after the taps when it does not."""
+    z = 8 * n_chan * stage_len(tile, ntaps, decim, outputs)
+    h = 4 * tap_chunks(ntaps, decim, outputs) * outputs * decim
+    if n_items(tile, decim, outputs) <= threads:
+        return z + h
+    return -(-(z + h) // 16) * 16 + 8 * decim * (n_chan * tile + 1)
+
+
+def kernel_plan(ntaps: int, decim: int, n_chan: int) -> Plan | None:
+    """R, T and threads for this geometry (None: no tile fits).
+
+    The largest R whose accumulators fit a thread's registers (8 up to
+    two channels, else 4), and with it the largest tile that one pass of
+    MAX_THREADS threads covers and shared memory holds; a smaller R only
+    where even one output group does not fit."""
+    for r in OUTPUTS_A_THREAD:
+        if r == 8 and n_chan > 2:
+            continue
+        for groups in range(max(1, MAX_THREADS // decim), 0, -1):
+            tile = r * groups
+            threads = min(MAX_THREADS, -(-groups * decim // 32) * 32)
+            smem = smem_bytes(r, tile, threads, ntaps, decim, n_chan)
+            if smem <= MAX_SMEM_BYTES:
+                return Plan(r, tile, threads, smem)
+    return None
+
+
+def item_phase_group(item: int, decim: int) -> tuple[int, int]:
+    """(phase p, output group g) of a block's item: adjacent items (the
+    lanes of a warp) take adjacent phases."""
+    return item % decim, item // decim
+
+
+def stage_origin(m0: int, decim: int) -> tuple[int, int]:
+    """(first staged sample, offset of the tile's first sample in the
+    staged span) for the tile that starts at output m0."""
+    n0 = m0 * decim
+    return n0 - n0 % ALIGN, n0 % ALIGN
+
+
+def padded_taps(taps: np.ndarray, decim: int, outputs: int) -> np.ndarray:
+    """The taps as the kernel stages them: (Jc*R, D) rows, row j holding
+    h[j*D : (j+1)*D], zero past ntaps."""
+    rows = tap_chunks(taps.size, decim, outputs) * outputs
+    out = np.zeros(rows * decim, np.float32)
+    out[: taps.size] = taps
+    return out.reshape(rows, decim)
+
+
+def chunk_tap(chunk: int, u: int, i: int, outputs: int) -> int:
+    """Tap row that row u of a thread's chunk `chunk` meets in its output
+    i: the row is chunk*R + u of the thread's walk, which is j = row - i
+    of output i (negative, or from Jc*R on: no product)."""
+    return chunk * outputs + u - i
+
+
+def partial_index(p: int, c: int, m_local: int, tile: int, n_chan: int) -> int:
+    """Where the partial sum of phase p for output m_local of channel c
+    sits (float2 entries): rows of n_chan*T + 1, so that the lanes of a
+    warp, adjacent phases, write to different banks."""
+    return p * (n_chan * tile + 1) + c * tile + m_local
 
 
 def channelizer_supported(ntaps: int, decim: int, offsets_hz, sample_rate: float,
@@ -164,17 +254,25 @@ def channelizer_supported(ntaps: int, decim: int, offsets_hz, sample_rate: float
     `pallas_channelizer_supported` accepts at the receiver's geometries,
     and more: no periodicity, P <= 64, row-period <= 1024 or tile-size
     limit (those come from the MXU and Mosaic).  It accepts less only
-    where one tile does not fit in shared memory, from a decimation of
-    about 160 at two channels.  `offsets_hz` and `sample_rate` are kept
-    for the reference's signature.
+    where not even one output's rows fit in shared memory, from a
+    decimation of about 1800 at two channels and 2891 taps.
+    `offsets_hz` and `sample_rate` are kept for the reference's
+    signature.
     """
     if not 1 <= len(offsets_hz) <= MAX_CHANNELS:
         return False
-    if kernel_group(int(ntaps), int(decim), len(offsets_hz)) is None:
+    if kernel_plan(int(ntaps), int(decim), len(offsets_hz)) is None:
         return False
     if n_in is not None and (n_in % decim or n_in < ntaps):
         return False
     return True
+
+
+def at_least_min_period(car: torch.Tensor) -> torch.Tensor:
+    """A (n_chan, q, 2) table of at least MIN_PERIOD entries with the same
+    carrier: any multiple of a period is a period."""
+    q = car.shape[1]
+    return car if q >= MIN_PERIOD else car.repeat(1, -(-MIN_PERIOD // q), 1)
 
 
 def mix_plain(x: torch.Tensor, car: torch.Tensor) -> torch.Tensor:
@@ -217,17 +315,21 @@ def launch(kernel: _build.Kernel, src: torch.Tensor, car: torch.Tensor,
         raise ValueError(f"unsupported carrier table {tuple(car.shape)}")
     if n_in % decim or n_in < ntaps:
         raise ValueError(f"n_in={n_in} is not whole decimation rows of at least {ntaps} taps")
-    group = kernel_group(ntaps, decim, n_chan)
-    if group is None:
+    plan = kernel_plan(ntaps, decim, n_chan)
+    if plan is None:
         raise NotImplementedError(UNSUPPORTED_HINT)
-    car = car.contiguous()
+    car = at_least_min_period(car).contiguous()
+    q = car.shape[1]
     taps = taps.contiguous()
     if n_chan * q >= 2**31:
         raise ValueError(f"carrier table {tuple(car.shape)} exceeds the kernel's int32 index")
+    if src.data_ptr() % 8:
+        src = src.clone()       # the kernel reads 4-byte words or float2
     m = n_out(n_in, ntaps, decim)
     out = torch.empty((n_chan, m), dtype=torch.complex64, device=dev)
     kernel(src.data_ptr(), car.data_ptr(), taps.data_ptr(),
-           torch.view_as_real(out).data_ptr(), n_in, m, ntaps, decim, q, n_chan, group,
+           torch.view_as_real(out).data_ptr(), n_in, m, ntaps, decim, q, n_chan,
+           plan.outputs, plan.tile, plan.threads,
            torch.cuda.current_stream(dev).cuda_stream)
     return out
 

@@ -69,6 +69,8 @@ from ais_tpu_torch.ops.channelizer import (
 )
 from ais_tpu_torch.ops.channelizer import n_out as _n_out
 from ais_tpu_torch.ops.convert import (
+    CI2_INNER,
+    CI2_OUTER,
     iq_from_bytes_ci1,
     iq_from_bytes_ci2,
     iq_from_bytes_ci4,
@@ -117,6 +119,25 @@ PACKED = {
     "ci2": PackedFormat(2, iq_from_bytes_ci2, _build.WIRE_CHANNELIZER_CI2),
     "ci4": PackedFormat(1, iq_from_bytes_ci4, _build.WIRE_CHANNELIZER_CI4),
 }
+
+
+def word_sample(fmt: str, word: int, k: int) -> complex:
+    """Sample k of one 32-bit little-endian word of `fmt`'s wire bytes
+    (byte b at bits 8b..8b+7), by the shifts of the kernel's decode
+    prologue, which reads a word a thread: 16 samples of ci1, 8 of ci2,
+    4 of ci4."""
+    if fmt == "ci1":
+        sh = 8 * (k >> 2) + 6 - 2 * (k & 3)
+        return complex(2.0 * ((word >> (sh + 1)) & 1) - 1.0, 2.0 * ((word >> sh) & 1) - 1.0)
+    if fmt == "ci2":
+        sh = 8 * (k >> 1) + (0 if k & 1 else 4)
+        level = (-CI2_OUTER, -CI2_INNER, CI2_INNER, CI2_OUTER)
+        return complex(level[(word >> (sh + 2)) & 3], level[(word >> sh) & 3])
+    if fmt == "ci4":
+        def nibble(v):
+            return (v & 15) - 16 * ((v & 15) >= 8)
+        return complex(nibble(word >> (8 * k + 4)) * 0.125, nibble(word >> (8 * k)) * 0.125)
+    raise ValueError(f"no packed wire format {fmt!r}")
 
 
 def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,

@@ -1,12 +1,15 @@
-"""K1 and K2 on the card: this tree's kernels against another checkout's,
-and against compile-time variants of themselves.
+"""The kernels on the card: this tree's against another checkout's, and
+against variants of themselves.
 
     python3 -m ais_tpu_torch.probes.kernel_variants [--other DIR] [--no-variants]
+                                                    [--only k1k2|channelizer] [--sass FILE]
 
 Needs one CUDA device and nvcc.  Every time is the median, over 5 runs,
 of one launch among many in a row between one CUDA event pair (no host
 time in it), at the benchmark geometry (K1: n_in = 56 682 200, D = 50,
-2891 taps, 2 channels; K2: 192 rows of 16384, L = 140), on seeded
+2891 taps, 2 channels; K2: 192 rows of 16384, L = 140; K3, K4, K5: the
+same n_in, D, taps and channels as K1, random wire bytes or complex64
+samples, K5 also on the full-length table of a 50 ppm radio), on seeded
 inputs.  One JSON line a measurement; the first names the card.
 
   --other DIR   a second checkout of this repository (for example the
@@ -15,6 +18,9 @@ inputs.  One JSON line a measurement; the first names the card.
                 child process on the same inputs, in turns with this
                 tree's (other, this, this, other); K2's corr and mag2 are
                 compared bit for bit, K1's outputs by max |difference|.
+                K3, K4 (ci2, ci4), K5 and K5 on the full-length table run
+                the same way through the wrappers both trees have; each
+                child also reports max |err| against its plain version.
   variants      copies of csrc/wire_channelizer.cu and
                 csrc/matched_filter.cu with one constant changed (warps a
                 block, 16-row tiles a warp, threads a block, blocks a
@@ -25,6 +31,19 @@ inputs.  One JSON line a measurement; the first names the card.
                 operand from four bit positions a shift (the sign and
                 three exponent bits of an fp16) without the B operand to
                 match, to see what the integer pipe costs.
+                The channelizer template (K3, K4, K5) takes its outputs a
+                thread, tile and threads at run time, so those variants
+                call this tree's library with another plan; the compile-
+                time ones change the launch bounds (the register cap), the
+                blocks a multiprocessor asked for, or drop the compile-time
+                decimation.  Each must reproduce this tree's output bit
+                for bit (an output's sum has the same order in all);
+                three more, timing only, leave out one stage each.  Before
+                them `fma_peak` times a kernel of fp32 FMAs alone, with
+                the SM clock nvidia-smi reports under that load and under
+                K5: the ceiling the card really offers the walk.
+  --sass FILE   write the SASS of K5's benchmark instantiation (cuobjdump)
+                to FILE and print its opcode counts.
 """
 
 from __future__ import annotations
@@ -102,6 +121,65 @@ def inputs():
     return chan, raw, car, MatchedFilter(pre, device=dev), torch.from_numpy(x).to(dev), n_in
 
 
+RADIO_PPM = 50.0
+CHANNELIZER_KERNELS = ("k3", "k4_ci2", "k4_ci4", "k5", "k5_full")
+
+
+def channelizer_inputs(name: str):
+    """(kernel, plain) closures of one of K3, K4, K5 at the bench geometry
+    on seeded inputs, through the wrappers."""
+    import torch
+
+    from ais_tpu_torch.ops import channelizer as ch
+    from ais_tpu_torch.ops import wire_channelizer as wc
+    from ais_tpu_torch.ops.fir import mixer_phase
+    from ais_tpu_torch.pipeline.radio import ppm_offset_hz
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    dev = torch.device("cuda")
+    cfg, n_in = bench_geometry()
+    offsets = cfg.offsets_hz
+    if name == "k5_full":
+        offsets = tuple(o + ppm_offset_hz(RADIO_PPM) for o in offsets)
+    chan = ch.Channelizer(channel_taps(cfg), cfg.decimation, offsets, cfg.input_rate, n_in,
+                          device=dev)
+    ph = np.stack([mixer_phase(o, cfg.input_rate, 123_456_789) for o in offsets])
+    car = ch.rotate_carrier(chan.carrier, torch.from_numpy(ph).to(dev)).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + len(name))
+    if name.startswith("k5"):
+        x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
+                          torch.randn(n_in, device=dev, generator=gen)) * 0.3
+        return (lambda: ch.freq_xlating_polyphase(x, car, chan.taps, decim=chan.decim),
+                lambda: ch.freq_xlating_polyphase_plain(x, car, chan.taps, chan.decim))
+    fmt = {"k3": "ci1", "k4_ci2": "ci2", "k4_ci4": "ci4"}[name]
+    raw = torch.randint(0, 256, (n_in // wc.PACKED[fmt].samples_per_byte,), device=dev,
+                        dtype=torch.uint8, generator=gen)
+    return (lambda: wc.wire_channelizer_packed(fmt, raw, car, chan.taps, decim=chan.decim,
+                                               n_in=n_in),
+            lambda: wc.wire_channelizer_packed_plain(fmt, raw, car, chan.taps, chan.decim))
+
+
+def run_channelizers(save_to: str | None) -> dict:
+    """Time K3, K4, K5 through this checkout's wrappers, with max |err|
+    against the plain version; optionally save the outputs."""
+    import torch
+
+    res = {}
+    for name in CHANNELIZER_KERNELS:
+        kernel, plain = channelizer_inputs(name)
+        y, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        res[f"{name}_max_abs_err_vs_plain"] = float((y - ref).abs().max())
+        del ref
+        if save_to:
+            np.save(f"{save_to}_{name}.npy", y.cpu().numpy())
+        del y
+        res[f"{name}_ms"] = back_to_back_ms(kernel, 20)
+        del kernel, plain
+        torch.cuda.empty_cache()
+    return res
+
+
 def run_wrappers(save_to: str | None) -> dict:
     """Time K1 and K2 through this checkout's wrappers; optionally save
     their outputs as .npy files with the prefix `save_to`."""
@@ -128,25 +206,38 @@ def run_wrappers(save_to: str | None) -> dict:
     return {"k1_ms": back_to_back_ms(k1, 30), "k2_ms": back_to_back_ms(k2, 100)}
 
 
-def compare_with(other: Path) -> None:
+def compare_with(other: Path, only: str | None) -> None:
+    which = [w for w in ("k1k2", "channelizer") if only in (None, w)]
     with tempfile.TemporaryDirectory() as tmp:
         for label, cwd in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-            # This file, run as a script from the checkout's root: there
-            # `ais_tpu_torch` is the checkout's own package.
-            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                                   f"{tmp}/{label}"], cwd=cwd, capture_output=True, text=True)
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
-            if proc.returncode or not lines:
-                raise RuntimeError(f"{label} ({cwd}) failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-            out(checkout=label, path=str(cwd), **json.loads(lines[0][7:]))
-        same = {}
-        for name in ("corr", "mag2"):
-            a, b = (np.load(f"{tmp}/{w}_{name}.npy") for w in ("other", "this"))
-            same[f"k2_{name}_bit_identical"] = bool(
-                (a.view(np.uint32) == b.view(np.uint32)).all())
-        a, b = (np.load(f"{tmp}/{w}_k1.npy") for w in ("other", "this"))
-        out(compare="this against other", **same,
-            k1_max_abs_difference=float(np.abs(a - b).max()), k1_max_abs=float(np.abs(a).max()))
+            for what in which:
+                # This file, run as a script from the checkout's root: there
+                # `ais_tpu_torch` is the checkout's own package.
+                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
+                                       f"{tmp}/{label}", "--only", what], cwd=cwd,
+                                      capture_output=True, text=True)
+                lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+                if proc.returncode or not lines:
+                    raise RuntimeError(f"{label} ({cwd}) failed:\n{proc.stdout[-2000:]}\n"
+                                       f"{proc.stderr[-2000:]}")
+                out(checkout=label, path=str(cwd), **json.loads(lines[0][7:]))
+        pair = lambda name: (np.load(f"{tmp}/{w}_{name}.npy") for w in ("other", "this"))  # noqa: E731
+        if "k1k2" in which:
+            same = {}
+            for name in ("corr", "mag2"):
+                a, b = pair(name)
+                same[f"k2_{name}_bit_identical"] = bool(
+                    (a.view(np.uint32) == b.view(np.uint32)).all())
+            a, b = pair("k1")
+            out(compare="this against other", **same,
+                k1_max_abs_difference=float(np.abs(a - b).max()), k1_max_abs=float(np.abs(a).max()))
+        if "channelizer" in which:
+            diff = {}
+            for name in CHANNELIZER_KERNELS:
+                a, b = pair(name)
+                diff[f"{name}_max_abs_difference"] = float(np.abs(a - b).max())
+                diff[f"{name}_max_abs"] = float(np.abs(a).max())
+            out(compare="this against other", **diff)
 
 
 A_FOUR_POSITIONS = '''
@@ -176,8 +267,8 @@ K2_VARIANTS = {
 }
 
 
-def build_variant(source: Path, subs, name: str):
-    """nvcc a copy of `source` with regex substitutions; (library, registers)."""
+def start_variant(source: Path, subs, name: str):
+    """Start nvcc on a copy of `source` with regex substitutions."""
     from ais_tpu_torch import _build
 
     text = source.read_text()
@@ -189,12 +280,250 @@ def build_variant(source: Path, subs, name: str):
     vdir.mkdir(parents=True, exist_ok=True)
     cu, so = vdir / f"{source.stem}_{name}.cu", vdir / f"{source.stem}_{name}.so"
     cu.write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
-                          capture_output=True, text=True)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return name, proc, so
+
+
+def finish_variant(started):
+    """(library, ptxas's register counts) of a started build."""
+    name, proc, so = started
+    log = proc.communicate()[0]
     if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed:\n{proc.stdout}{proc.stderr}")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", proc.stdout + proc.stderr)]
-    return ctypes.CDLL(str(so)), regs
+        raise RuntimeError(f"{name}: nvcc failed:\n{log}")
+    return ctypes.CDLL(str(so)), [int(r) for r in re.findall(r"Used (\d+) registers", log)], log
+
+
+def build_variant(source: Path, subs, name: str):
+    """nvcc a copy of `source` with regex substitutions; (library, registers)."""
+    lib, regs, _ = finish_variant(start_variant(source, subs, name))
+    return lib, regs
+
+
+# The channelizer template's plan at run time: (R outputs a thread, T
+# outputs a tile, threads a block); its shared memory follows.
+PLAN_VARIANTS = {
+    "as_planned": None,
+    "r8_tile104_threads672": (8, 104, 672),
+    "r8_tile112_threads704": (8, 112, 704),
+    "r8_tile96_threads608": (8, 96, 608),
+    "r8_tile64_threads416": (8, 64, 416),
+    "r8_tile48_threads320_two_blocks_fit": (8, 48, 320),
+    "r8_tile32_threads224_two_blocks_fit": (8, 32, 224),
+    "r4_tile60_threads768": (4, 60, 768),
+    "r4_tile32_threads416_two_blocks_fit": (4, 32, 416),
+    "r1_tile15_threads768": (1, 15, 768),
+}
+# Compile-time: (substitutions, plan or None for this tree's).
+_BOUNDS = r"constexpr int kMaxThreads = \d+;"
+_BLOCKS = r"__launch_bounds__\(kMaxThreads, 1\)"
+SOURCE_VARIANTS = {
+    "rebuilt_as_is": ((), None),
+    "bounds640_96_registers_tile96": (((_BOUNDS, "constexpr int kMaxThreads = 640;"),), (8, 96, 608)),
+    "bounds1024_64_registers": (((_BOUNDS, "constexpr int kMaxThreads = 1024;"),), None),
+    "bounds320_two_blocks_asked_tile48": (
+        ((_BOUNDS, "constexpr int kMaxThreads = 320;"),
+         (_BLOCKS, "__launch_bounds__(kMaxThreads, 2)")), (8, 48, 320)),
+    # 25 warps (7, 6, 6, 6 on the schedulers) for 16 whole output groups.
+    "bounds832_tile128_threads800": (((_BOUNDS, "constexpr int kMaxThreads = 832;"),), (8, 128, 800)),
+    "a_block_a_tile": (((r"const int blocks = n_tiles < sms \* resident \? n_tiles : sms \* resident;",
+                         "const int blocks = n_tiles;"),), None),
+    "prologue_loop_left_by_whole_warps": (((r"\(S == 1 \? u : u - lane\) < n_units",
+                                            "u - lane < n_units"),), None),
+    # 16 outputs a thread: half the sample loads an FMA, 512 threads of up to 128 registers.
+    "r16_tile160_threads512": (
+        ((_BOUNDS, "constexpr int kMaxThreads = 512;"),
+         (r"    case 8:\n", "    case 16:\n      if constexpr (NCH <= 2) return "
+          "launch_decim<Decode, NCH, 16>(src, car, taps, out, g, stream);\n    case 8:\n")),
+        (16, 160, 512)),
+    "decimation_at_run_time": (((r"if \(g\.decim == 50\)", "if (false)"),), None),
+    # Timing only (their outputs are wrong): one stage of the kernel left out.
+    "timing_only_no_prologue": (((r"const int n_units = [^;]*;", "const int n_units = 0;"),), None),
+    "timing_only_no_walk": (((r"const bool live = item < n_items;",
+                              "const bool live = item < n_items && n_out < 0;"),), None),
+    "timing_only_walk_without_sample_loads": (
+        ((r"load_z<NCH>\(zp \+ u \* row_stride, z\);",
+          "for (int c = 0; c < NCH; ++c) z[c] = make_float2(c + 1.0f, c + 1.5f);"),), None),
+    "timing_only_walk_without_tap_loads": (((r"= hp\[u \* D\];", "= 0.5f + u;"),), None),
+    "timing_only_launch_and_taps": (
+        ((r"const int n_units = [^;]*;", "const int n_units = 0;"),
+         (r"const bool live = item < n_items;", "const bool live = item < n_items && n_out < 0;"),
+         (r"for \(int ph = 0; ph < D; \+\+ph\)", "for (int ph = 0; ph < 1; ++ph)")), None),
+    "timing_only_no_phase_sum": (((r"for \(int ph = 0; ph < D; \+\+ph\)",
+                                   "for (int ph = 0; ph < 1; ++ph)"),), None),
+}
+
+
+def channelizer_variants(match: str = "") -> None:
+    """K5 (and K4 ci2 on the plan variants) at the bench geometry under
+    other plans and other builds of csrc/channelizer.cu."""
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops import channelizer as ch
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    dev = torch.device("cuda")
+    cfg, n_in = bench_geometry()
+    chan = ch.Channelizer(channel_taps(cfg), cfg.decimation, cfg.offsets_hz, cfg.input_rate,
+                          n_in, device=dev)
+    car = ch.rotate_carrier(chan.carrier, torch.zeros(2, device=dev)).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
+                      torch.randn(n_in, device=dev, generator=gen)) * 0.3
+    raw = torch.randint(0, 256, (n_in // 2,), device=dev, dtype=torch.uint8, generator=gen)
+    stream = torch.cuda.current_stream().cuda_stream
+    ntaps, decim, n_chan, q = chan.taps.numel(), chan.decim, car.shape[0], car.shape[1]
+    planned = ch.kernel_plan(ntaps, decim, n_chan)
+    source_variants = {k: v for k, v in SOURCE_VARIANTS.items() if re.search(match, k)}
+    started = [start_variant(_build.CSRC / "channelizer.cu", subs, name)
+               for name, (subs, _) in source_variants.items()]
+    _build.library()
+
+    def runner(lib, symbol, src, plan, got):
+        fn = getattr(lib, symbol)
+        fn.argtypes = _build.CHANNELIZER.argtypes
+        fn.restype = ctypes.c_int
+
+        def run():
+            rc = fn(src.data_ptr(), car.data_ptr(), chan.taps.data_ptr(),
+                    torch.view_as_real(got).data_ptr(), n_in, chan.n_out, ntaps, decim, q, n_chan,
+                    *plan, stream)
+            if rc:
+                raise RuntimeError(f"{symbol} {plan}: CUDA error {rc}")
+        return run
+
+    sources = (("K5", "ais_channelizer_f32", torch.view_as_real(x).reshape(-1)),
+               ("K4 ci2", "ais_wire_channelizer_ci2", raw))
+    refs = {}
+    for kernel, symbol, src in sources:
+        refs[kernel] = torch.empty((n_chan, chan.n_out), dtype=torch.complex64, device=dev)
+        runner(_build.library(), symbol, src, planned[:3], refs[kernel])()
+    torch.cuda.synchronize()
+    for name, plan in PLAN_VARIANTS.items():
+        if not re.search(match, name):
+            continue
+        plan = plan or planned[:3]
+        for kernel, symbol, src in sources:
+            got = torch.empty_like(refs[kernel])
+            ms = back_to_back_ms(runner(_build.library(), symbol, src, plan, got), 20)
+            out(kernel=kernel, variant=name, plan=list(plan),
+                smem=ch.smem_bytes(*plan, ntaps, decim, n_chan), ms=ms,
+                equals_as_built=bool(torch.equal(torch.view_as_real(got),
+                                                 torch.view_as_real(refs[kernel]))))
+    for start, (name, (_, plan)) in zip(started, source_variants.items()):
+        lib, _, log = finish_variant(start)
+        regs = re.findall(r"channelizer_kernelINS_9DecodeF32ELi2ELi8ELi\d+E.*?Used (\d+) registers",
+                          log, flags=re.S)
+        spills = re.findall(r"channelizer_kernelINS_9DecodeF32ELi2ELi8ELi\d+E.*?(\d+) bytes spill "
+                            r"stores", log, flags=re.S)
+        plan = plan or planned[:3]
+        got = torch.empty_like(refs["K5"])
+        ms = back_to_back_ms(runner(lib, "ais_channelizer_f32", sources[0][2], plan, got), 20)
+        out(kernel="K5", variant=name, plan=list(plan), registers_r8_2ch=regs,
+            spill_store_bytes_r8_2ch=spills, ms=ms,
+            equals_as_built=bool(torch.equal(torch.view_as_real(got),
+                                             torch.view_as_real(refs["K5"]))))
+
+
+FMA_PEAK_SOURCE = """
+#include <cuda_runtime.h>
+// 32 independent fp32 FMA chains a thread and nothing else: the rate the
+// card's FMA pipes reach at the clocks it holds under that load.
+__global__ void __launch_bounds__(1024, 1) fma_peak(float* out, int iters, float a) {
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = threadIdx.x + i;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = fmaf(acc[i], a, 1.0f);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int ais_fma_peak(void* out, int blocks, int threads, int iters, void* stream) {
+  fma_peak<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters, 0.999f);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def fma_peak() -> None:
+    """The fp32 FMA rate this card reaches on a kernel that is FMAs alone
+    (25 warps a multiprocessor, as K5's plan, and 32), with the SM clock
+    nvidia-smi reports while it runs: the ceiling K5's walk is held to."""
+    import torch
+
+    from ais_tpu_torch import _build
+
+    vdir = _build.BUILD_DIR / "variants"
+    vdir.mkdir(parents=True, exist_ok=True)
+    (vdir / "fma_peak.cu").write_text(FMA_PEAK_SOURCE)
+    lib, _, _ = finish_variant(start_variant(vdir / "fma_peak.cu", (), "built"))
+    fn = lib.ais_fma_peak
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    buf = torch.empty(sms * 1024, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    iters = 20_000
+    for threads in (768, 800, 1024):
+        def run():
+            rc = fn(buf.data_ptr(), sms, threads, iters, stream)
+            if rc:
+                raise RuntimeError(f"fma_peak: CUDA error {rc}")
+        ms = back_to_back_ms(run, 20)
+        # Sample the clock while the card is under the same load.
+        for _ in range(200):
+            run()
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+        torch.cuda.synchronize()
+        flop = 2.0 * 32 * iters * threads * sms
+        out(kernel="fma_peak", threads_a_multiprocessor=threads, ms=ms,
+            tflops=flop / ms / 1e9, under_load=smi)
+
+
+def clocks_under_k5() -> None:
+    """The SM clock and power nvidia-smi reports while K5 runs back to back."""
+    import torch
+
+    kernel, _ = channelizer_inputs("k5")
+    kernel()
+    torch.cuda.synchronize()
+    for _ in range(400):
+        kernel()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    torch.cuda.synchronize()
+    out(kernel="K5", under_load=smi)
+
+
+def sass_report(path: Path) -> None:
+    """The SASS of K5's benchmark instantiation (F32, 2 channels, R = 8,
+    D = 50) into `path`, and its opcode counts."""
+    from ais_tpu_torch import _build
+
+    _build.library()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", _build.build_info["path"]], capture_output=True,
+                          text=True, check=True).stdout
+    parts = [f for f in text.split("Function : ") if "DecodeF32ELi2ELi8ELi50E" in f.split("\n")[0]]
+    if not parts:
+        raise RuntimeError("K5's benchmark instantiation is not in the library")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(parts[0])
+    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)", parts[0], flags=re.M)
+    counts = {}
+    for op in ops:
+        counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
+    out(sass=str(path), opcodes=len(ops),
+        counts=dict(sorted(counts.items(), key=lambda kv: -kv[1])),
+        build_log=[ln for ln in _build.build_info["log"].splitlines()
+                   if "DecodeF32ELi2ELi8ELi50E" in ln or "spill" in ln][:12])
 
 
 def variants() -> None:
@@ -267,20 +596,33 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", type=Path, help="a second checkout to run in turns with this one")
     parser.add_argument("--no-variants", action="store_true")
+    parser.add_argument("--only", choices=("k1k2", "channelizer"),
+                        help="K1 and K2 alone, or K3, K4 and K5 alone")
+    parser.add_argument("--match", default="", help="only the channelizer variants whose name "
+                        "matches this regular expression")
+    parser.add_argument("--sass", type=Path, help="write K5's SASS here and count its opcodes")
     parser.add_argument("--child", metavar="PREFIX", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child:
-        print("RESULT", json.dumps(run_wrappers(args.child)), flush=True)
+        run = run_channelizers if args.only == "channelizer" else run_wrappers
+        print("RESULT", json.dumps(run(args.child)), flush=True)
         return 0
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     out(card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    if args.sass:
+        sass_report(args.sass.resolve())
     if args.other:
-        compare_with(args.other.resolve())
+        compare_with(args.other.resolve(), args.only)
     if not args.no_variants:
-        variants()
+        if args.only in (None, "k1k2"):
+            variants()
+        if args.only in (None, "channelizer"):
+            fma_peak()
+            clocks_under_k5()
+            channelizer_variants(args.match)
     return 0
 
 

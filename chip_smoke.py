@@ -21,8 +21,12 @@ overflow recovery, the CLI), in phases, one result line each:
      paths' shapes, with the median time of each, its bound (the least
      time the card could take) and a library call's time where one
      PyTorch call computes the same function; K1 also at 1, 3 and 4
-     channels, K2 also at rows off its tile and odd tap counts; k5_full: K5 with the full-length carrier table of a 50
-     ppm radio at the bench n_in; fir_only: the channelizers' yardstick;
+     channels, K2 also at rows off its tile and odd tap counts; k5_full:
+     K5 with the full-length carrier table of a 50 ppm radio at the bench
+     n_in; k5_shapes: K5, K4 and K3 off the bench geometry (other channel
+     counts and decimations, short taps, a tile that ends inside n_out,
+     every count of outputs a thread); fir_only: the channelizers'
+     yardstick;
   5. main path (cr1): a warm-up decode whose packets must match the
      transmitted ones (content parity 1.0), then timed steps, then the
      time of each stage;
@@ -448,6 +452,85 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
     return rows
 
 
+K5_SHAPES = (
+    # name, kernel ("iq" or a packed format), taps (cutoff, transition or None for the bench's),
+    # rate, decim, offsets, n_in
+    ("1_channel", "iq", None, 2.4e6, 50, (-25e3,), 400_000),
+    ("3_channels", "iq", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
+    ("4_channels", "iq", None, 2.4e6, 50, (-25e3, 25e3, 0.0, 50e3), 400_000),
+    ("ends_inside_a_tile", "iq", None, 2.4e6, 50, (-25e3, 25e3), 400_000),
+    ("d5_1_channel", "iq", (11e3, 4e3), 250e3, 5, (25e3,), 1_048_575),
+    ("d1_1_channel", "iq", (11e3, 4e3), 48e3, 1, (6e3,), 200_000),
+    ("7_taps", "iq", 7, 2.4e6, 50, (-25e3, 25e3), 400_000),
+    ("140_taps", "iq", 140, 2.4e6, 50, (-25e3, 25e3), 400_000),
+    ("full_table_1_channel", "iq", None, 2.4e6, 50, (25e3 * math.sqrt(2),), 400_000),
+    ("d1000_4_channels_1_output_a_thread", "iq", None, 2.4e6, 1000,
+     (-25e3, 25e3, 0.0, 50e3), 300_000),
+    ("d1800_2_channels_1_output_a_thread", "iq", None, 2.4e6, 1800, (-25e3, 25e3), 360_000),
+    ("ci2_3_channels", "ci2", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
+    ("ci4_d5_1_channel", "ci4", (11e3, 4e3), 250e3, 5, (25e3,), 1_048_575),
+    # Odd decimation and a wire that ends inside a 32-bit word.
+    ("ci1_d51_partial_last_word", "ci1", None, 2.4e6, 51, (-25e3, 25e3), 400_044),
+)
+
+
+def phase_k5_shapes(cfg) -> None:
+    """K5 off the bench geometry (1, 3 and 4 channels; D = 5 and D = 1 with
+    one channel; an n_out that ends inside a tile; short taps; a full-
+    length table; decimations that leave room for only 1 or 2 outputs a
+    thread, and more items than threads) and K3/K4 at some of them, each
+    against its plain version: every instantiation the plan can pick is
+    launched and compared."""
+    import torch
+
+    from ais_tpu_torch.ops.channelizer import (
+        Channelizer, freq_xlating_polyphase, freq_xlating_polyphase_plain, kernel_plan,
+        rotate_carrier,
+    )
+    from ais_tpu_torch.ops.firdes import low_pass
+    from ais_tpu_torch.ops.wire_channelizer import (
+        PACKED, wire_channelizer_packed, wire_channelizer_packed_plain,
+    )
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    seen = set()
+    for name, kind, tap_spec, rate, decim, offsets, n_in in K5_SHAPES:
+        if tap_spec is None:
+            taps = channel_taps(cfg)
+        elif isinstance(tap_spec, int):
+            taps = channel_taps(cfg)[:tap_spec]
+        else:
+            taps = low_pass(1.0, rate, *tap_spec)
+        chan = Channelizer(taps, decim, offsets, rate, n_in, device=dev)
+        ph = torch.from_numpy(rng.uniform(0, 2 * math.pi, len(offsets)).astype(np.float32)).to(dev)
+        car = rotate_carrier(chan.carrier, ph)
+        if kind == "iq":
+            x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
+                              torch.randn(n_in, device=dev, generator=gen)) * 0.3
+            got = freq_xlating_polyphase(x, car, chan.taps, decim=decim)
+            ref = freq_xlating_polyphase_plain(x, car, chan.taps, decim)
+        else:
+            raw = torch.randint(0, 256, (n_in // PACKED[kind].samples_per_byte,), device=dev,
+                                dtype=torch.uint8, generator=gen)
+            got = wire_channelizer_packed(kind, raw, car, chan.taps, decim=decim, n_in=n_in)
+            ref = wire_channelizer_packed_plain(kind, raw, car, chan.taps, decim)
+        torch.cuda.synchronize()
+        max_err, ok = channelizer_error(got, ref)
+        plan = kernel_plan(chan.taps.numel(), decim, len(offsets))
+        seen.add((len(offsets), plan.outputs))
+        log("k5_shapes", case=name, kernel=kind, n_chan=len(offsets), decim=decim,
+            ntaps=chan.taps.numel(), n_in=n_in, n_out=chan.n_out, period=chan.carrier.shape[1],
+            plan=plan._asdict(), tolerance=TOLERANCE, max_abs_err=max_err, within=ok)
+        if got.shape != ref.shape or not ok:
+            raise RuntimeError(f"{kind} at {name} disagrees with its plain version: {max_err}")
+    want = {(1, 8), (2, 8), (3, 4), (4, 4), (4, 1), (2, 1)}
+    if not want <= seen:
+        raise RuntimeError(f"k5_shapes did not launch every instantiation: {sorted(seen)}")
+
+
 def phase_k2() -> dict:
     import torch
 
@@ -640,6 +723,8 @@ def phase_complex_iq(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> d
     if min(n_found) != max(n_found) or n_found[0] != len(found):
         raise RuntimeError(f"complex path: timed steps decoded {n_found} packets")
     out["launches"] = path_launches(launches, ("channelizer", "matched_filter"))
+    if any(n != 1 for n in out["launches"].values()):
+        raise RuntimeError(f"K5 and K2 should launch once a step: {out['launches']} in one step")
     return out
 
 
@@ -729,6 +814,9 @@ def phase_wire_formats(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) ->
         if rx.overflow_blocks:
             raise RuntimeError(f"{fmt}: {rx.overflow_blocks} blocks overflowed")
         launches[fmt] = path_launches(counts, (kernel_of[fmt], "matched_filter"))
+        if any(n != 1 for n in launches[fmt].values()):
+            raise RuntimeError(f"{fmt}: its channelizer and K2 should launch once a step: "
+                               f"{launches[fmt]} in one step")
         del wire
     torch.cuda.empty_cache()
     return launches
@@ -1109,6 +1197,7 @@ def main() -> int:
     cfg, n_in = bench_geometry()
     rows += [phase_k1(cfg, n_in), phase_k2(), *phase_k3_k4_k5(cfg, n_in)]
     phase_k5_full(cfg, n_in, rows[-1])
+    phase_k5_shapes(cfg)
     fir_only_ms = phase_fir_only(cfg, n_in)
     iq, tx_packets = phase_scene(cfg, n_in)
     card = env["card"]

@@ -139,11 +139,13 @@ def test_support_predicates_accept_where_reference_accepts():
     assert not tch.channelizer_supported(TAPS.size, DECIM, OFFSETS, RATE, 80_010)
     assert not twc.wire_channelizer_supported("ci1", TAPS.size, DECIM, OFFSETS, RATE, 80_050)
     assert twc.wire_channelizer_supported("ci2", TAPS.size, DECIM, OFFSETS, RATE, 80_000)
-    # The tile search: 4 threads an output and two blocks an SM at the bench.
-    assert tch.kernel_group(TAPS.size, DECIM, 2) == 4
-    assert tch.smem_bytes(4, TAPS.size, DECIM, 2) <= tch.TARGET_SMEM_BYTES
-    assert tch.kernel_group(TAPS.size, 400, 4) == 32
-    assert tch.kernel_group(TAPS.size, 1000, 4) is None
+    # The plan search: 8 outputs a thread and a 120-output tile at the bench,
+    # fewer outputs a thread where a tile would not fit otherwise.
+    assert tch.kernel_plan(TAPS.size, DECIM, 2)[:3] == (8, 120, 768)
+    assert tch.kernel_plan(TAPS.size, DECIM, 2).smem <= tch.MAX_SMEM_BYTES
+    assert tch.kernel_plan(TAPS.size, 400, 4).outputs == 4
+    assert tch.kernel_plan(TAPS.size, 1000, 4).outputs == 1
+    assert tch.kernel_plan(TAPS.size, 4000, 4) is None
 
 
 def test_unsupported_geometry_raises_naming_the_fft_formulation():
@@ -171,7 +173,7 @@ def test_unsupported_geometry_raises_naming_the_fft_formulation():
     _close(got, chan(tconvert.iq_from_bytes_ci2(torch.from_numpy(raw)),
                      torch.from_numpy(ph)).numpy())
     with pytest.raises(NotImplementedError, match="shared memory"):
-        tch.Channelizer(TAPS, 1000, offsets * 2, RATE, 80_000)
+        tch.Channelizer(TAPS, 4000, offsets * 2, RATE, 80_000)
 
 
 def test_dispatch_takes_plain_version_only_on_cpu():
