@@ -149,6 +149,14 @@ WIRE_CHANNELIZER_CR1 = Kernel(
     # decim, q, n_chan, unscale, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
 )
+# K3 in its 1-bit tensor-core form (the same source as K1).
+WIRE_CHANNELIZER_CI1_MMA = Kernel(
+    "wire_channelizer_ci1_mma",
+    "ais_wire_channelizer_ci1_mma",
+    # raw, carrier, tap fragments, out, n_bytes, n_out, n_super, tile_words,
+    # tile_outputs, decim, q, n_chan, unscale, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+)
 MATCHED_FILTER = Kernel(
     "matched_filter",
     "ais_matched_filter",
@@ -172,8 +180,8 @@ PROBE = Kernel(
     # x, y, out, n, stream
     [_P, _P, _P, _I, _P],
 )
-KERNELS = (WIRE_CHANNELIZER_CR1, MATCHED_FILTER, CHANNELIZER, WIRE_CHANNELIZER_CI1,
-           WIRE_CHANNELIZER_CI2, WIRE_CHANNELIZER_CI4, PROBE)
+KERNELS = (WIRE_CHANNELIZER_CR1, WIRE_CHANNELIZER_CI1_MMA, MATCHED_FILTER, CHANNELIZER,
+           WIRE_CHANNELIZER_CI1, WIRE_CHANNELIZER_CI2, WIRE_CHANNELIZER_CI4, PROBE)
 
 
 def reset_launch_counts() -> None:

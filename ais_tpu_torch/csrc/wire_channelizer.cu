@@ -1,8 +1,12 @@
-// K1: cr1 wire channelizer — packed 1-bit real samples -> per-channel
-// decimated complex baseband, in one pass, on the tensor cores.
+// K1 and K3: the 1-bit wire channelizers — packed 1-bit samples ->
+// per-channel decimated complex baseband, in one pass, on the tensor
+// cores.  One kernel, two entry points: K1 (cr1, real samples) is
+// described first, K3 (ci1, complex samples) as the same product over the
+// wire's bit sequence after it.
 //
-// Replaces ais_tpu/ops/pallas_fir.py:_pallas_wire_channelizer_cr1 (body
-// _wire_kernel_cr1), the TPU kernel on the reference's main path.
+// K1 replaces ais_tpu/ops/pallas_fir.py:_pallas_wire_channelizer_cr1 (body
+// _wire_kernel_cr1), the TPU kernel on the reference's main path; K3
+// replaces _pallas_wire_channelizer_ci1 (body _wire_kernel_ci1).
 //
 // Computes, for every channel c and output m:
 //
@@ -71,17 +75,72 @@
 // ceil(ntaps/D)*4 tap matrix through wgmma, then a sum along
 // anti-diagonals through shared memory) needs that collapse and a halo;
 // this form needs neither descriptors nor barriers.
+//
+// K3: the ci1 wire channelizer.  A ci1 byte holds four complex samples as
+// bit pairs, I0 Q0 .. I3 Q3, MSB first, each +1/-1.  It computes
+//
+//   y[c, m] = sum_{k < ntaps} h[k] * x[m*D + k] * car_c[(m*D + k) mod q]
+//
+// with x[n] = I[n] + jQ[n] and car_c the baseband mixer e^{-j2pi off_c n
+// / fs} (no fs/4 fold), rotated by the start phase.  Its bound at the
+// bench geometry is as K1's: 2.7e10 fp32 flop, 0.40 ms at the fp32 rate
+// outside the tensor cores, for 14 MB of wire in and 18 MB out.  In the
+// register-blocked form of csrc/channelizer.cu (decode each bit pair to
+// two floats, mix, store to shared memory, walk 2891 x 4 FMAs an output
+// and channel) it reached 44 % of that: the walk's shared-memory loads and
+// a prologue that nothing overlaps.  A 1-bit input needs neither.
+//
+// With the carrier folded as above, g_c[k] = h[k] e^{-j w_c k}:
+//
+//   y[c, m] = car_c[m*D mod q] * sum_k g_c[k] * (I[m*D + k] + j Q[m*D + k])
+//           = car_c[m*D mod q] * sum_{i < 2 ntaps} G_c[i] * b[2*m*D + i]
+//
+// where b is the wire's own bit sequence (b[2n] = I[n], b[2n + 1] = Q[n]:
+// the order of the bytes as they are) and G_c[2k] = g_c[k], G_c[2k + 1] =
+// j g_c[k].  That is K1's product on a real +-1 stream of 2 n_in bits, with
+// 2 ntaps complex taps and a decimation of 2D bits; only the carrier index
+// advances by D, not 2D, an output.  So K3 runs the kernel below with the
+// bit decimation and two wire bits a sample (BITS); the host builds G
+// (ops/wire_channelizer.py:bit_stream_taps) and packs it as K1's B.
+//
+// What differs on the card: B is twice as long (46 super-steps: 94 KB at
+// 2 channels, 188 KB at 3-4), so two blocks share a multiprocessor at 2
+// channels and one at 3-4, not four.  K3's blocks therefore have 12 warps
+// of two 16-row tiles each (384 outputs a tile): 24 warps a
+// multiprocessor, six a scheduler, which keep it fed while a block stages
+// its tile.  On an H100 (700 W) that shape ran in 0.53-0.55 ms at the
+// bench geometry (76 % of the bound; the template 0.92); 4 to 16 warps
+// and 1 to 4 tiles a warp gave 0.54-0.68, and B read through the L1
+// cache instead of staged (more blocks a multiprocessor) 0.53-0.58: no
+// better, so B stays staged as K1's.  What sets the pace is what sets
+// K1's, the integer pipe that builds A: with the mma left out the kernel
+// takes nearly as long (0.49-0.55 ms), with the shift and lop3 left out
+// 0.34-0.36.  G's odd entries are j times the even ones, so B's re and im
+// columns hold the same numbers permuted and negated; using that would
+// halve B in shared memory at the price of more work in that integer
+// pipe, and it saves no mma: the product has 2 ntaps real inputs and 4
+// real columns a channel either way.  It is not used.  The mma count is
+// twice K1's; so is the time.  The carrier's stride comes from BITS at
+// compile time: as a run-time argument it cost K1 six registers and 3 %.
+//
+// Error budget: as K1's, with a chain of 46 rounded adds a column
+// instead of 23 at 2891 taps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMTiles = 4;                      // 16-row mma tiles a warp
-constexpr int kWarpRows = 16 * kMTiles;
-constexpr int kTile = kWarps * kWarpRows;       // outputs a block tile (256)
+// Warps a block and 16-row mma tiles a warp: a block's tile is
+// warps * 16 * tiles outputs (TILE_OUTPUTS and CI1_TILE_OUTPUTS in
+// ops/wire_channelizer.py).
+constexpr int kWarps = 4;                       // K1: 256 outputs a tile
+constexpr int kMTiles = 4;
+constexpr int kCi1Warps = 12;                   // K3: 384 outputs a tile
+constexpr int kCi1MTiles = 2;
+// B staged in shared memory once a block (true), or read through the L1
+// cache at every use (false: timing variants only).
+constexpr bool kStageB = true;
 constexpr int kSuper = 128;                     // taps a super-step
 constexpr uint32_t kSignMask = 0x80008000u;     // the sign bits of an fp16 pair
 constexpr uint32_t kMinusOne = 0xBC00BC00u;     // fp16 -1.0, twice
@@ -104,20 +163,27 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// NT: mma n-tiles of 8 columns (1 for 1-2 channels, 2 for 3-4).
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
-                            const float2* __restrict__ car,    // (n_chan, q), rotated
-                            const uint2* __restrict__ frags,   // (n_super, 8, NT, 32)
-                            float* __restrict__ out,           // (n_chan, n_out, 2)
-                            int n_bytes, int n_out, int n_super, int tile_words,
-                            int decim, int q, int n_chan, int n_tiles,
-                            float unscale, uint32_t sign_mask, uint32_t minus_one) {
+// NT: mma n-tiles of 8 columns (1 for 1-2 channels, 2 for 3-4); WARPS,
+// MTILES: the block's shape; BITS: wire bits a sample (1 for cr1, 2 for
+// ci1).  `decim` counts wire bits an output (D for cr1, 2D for ci1); the
+// carrier advances decim / BITS samples an output.
+template <int NT, int WARPS, int MTILES, int BITS>
+__global__ void __launch_bounds__(WARPS * 32)
+wire_bits_kernel(const uint8_t* __restrict__ raw,
+                 const float2* __restrict__ car,    // (n_chan, q), rotated
+                 const uint2* __restrict__ frags,   // (n_super, 8, NT, 32)
+                 float* __restrict__ out,           // (n_chan, n_out, 2)
+                 int n_bytes, int n_out, int n_super, int tile_words,
+                 int decim, int q, int n_chan, int n_tiles,
+                 float unscale, uint32_t sign_mask, uint32_t minus_one) {
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kWarpRows = 16 * MTILES;
+  constexpr int kTile = WARPS * kWarpRows;
+  static_assert(kTile % 32 == 0, "a tile must start on a 32-bit word of the wire");
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_frag = n_super * 8 * NT * 32;
   uint2* s_b = reinterpret_cast<uint2*>(smem);
-  uint32_t* s_w = reinterpret_cast<uint32_t*>(s_b + n_frag);
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(s_b + (kStageB ? n_frag : 0));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -125,12 +191,14 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
   const int g = lane >> 2;   // the fragment's row (and B's column)
   const int t = lane & 3;    // lane of the quad: which 32 taps of a super-step
 
-  for (int i = tid; i < n_frag; i += kThreads) s_b[i] = frags[i];
+  if (kStageB)
+    for (int i = tid; i < n_frag; i += kThreads) s_b[i] = frags[i];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long m0 = static_cast<long long>(tile) * kTile;
-    // A tile is kTile * decim bits = 32 * decim bytes on: every tile
-    // starts on a 4-byte word of the wire.
+    // A tile is kTile * decim bits = (kTile / 8) * decim bytes on, and
+    // kTile is a multiple of 32: every tile starts on a 4-byte word of
+    // the wire.
     const long long word0 = static_cast<long long>(tile) * (kTile / 8) * decim;
 
     __syncthreads();  // the last tile's windows are all read
@@ -151,25 +219,25 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
 
     // This lane's rows: 16*mt + g + 8*h of the warp's 64; the first bit
     // of its window in super-step 0.
-    int rowbit[kMTiles][2];
+    int rowbit[MTILES][2];
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
+    for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         rowbit[mt][h] = (warp * kWarpRows + mt * 16 + g + 8 * h) * decim + 32 * t;
 
-    float acc[kMTiles][NT][4];
+    float acc[MTILES][NT][4];
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
+    for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
     for (int S = 0; S < n_super; ++S) {
-      uint32_t win[kMTiles][2];
+      uint32_t win[MTILES][2];
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int p = rowbit[mt][h] + S * kSuper;
@@ -177,22 +245,22 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
           win[mt][h] = __funnelshift_l(s_w[wi + 1], s_w[wi], p & 31);
         }
 
-      float c[kMTiles][NT][4];
+      float c[MTILES][NT][4];
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) c[mt][nt][i] = 0.0f;
 
-      const uint2* bp = s_b + S * (8 * NT * 32) + lane;
+      const uint2* bp = (kStageB ? s_b : frags) + S * (8 * NT * 32) + lane;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         uint2 b[NT];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) b[nt] = bp[(j * NT + nt) * 32];
 #pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) {
+        for (int mt = 0; mt < MTILES; ++mt) {
           uint32_t a[4];
           a[0] = and_xor(win[mt][0] << (2 * j), sign_mask, minus_one);
           a[1] = and_xor(win[mt][1] << (2 * j), sign_mask, minus_one);
@@ -204,7 +272,7 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
       }
       // Flush the short tensor-core chains into IEEE sums.
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
+      for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -215,7 +283,7 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
     // column pair t of n-tile nt: channel 2*nt + t/2, re for even t, im
     // for odd; the other component is in the neighbouring lane.
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
+    for (int mt = 0; mt < MTILES; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long m = m0 + warp * kWarpRows + mt * 16 + g + 8 * h;
@@ -225,7 +293,8 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
           const float other = __shfl_xor_sync(0xffffffffu, v, 1);
           const int ch = 2 * nt + (t >> 1);
           if (m < n_out && ch < n_chan) {
-            const float2 rot = __ldg(car + static_cast<long long>(ch) * q + (m * decim) % q);
+            const float2 rot =
+                __ldg(car + static_cast<long long>(ch) * q + (m * (decim / BITS)) % q);
             // even t: re = re*rx - im*ry; odd t: im = im*rx + re*ry.
             const float cross = other * rot.y;
             const float y = fmaf(v, rot.x, (t & 1) ? cross : -cross);
@@ -236,12 +305,15 @@ wire_channelizer_cr1_kernel(const uint8_t* __restrict__ raw,
   }
 }
 
-template <int NT>
+template <int NT, int WARPS, int MTILES, int BITS>
 int launch(const uint8_t* raw, const float2* car, const uint2* frags, float* out,
            int n_bytes, int n_out, int n_super, int tile_words, int decim, int q,
            int n_chan, float unscale, cudaStream_t stream) {
-  const size_t smem = sizeof(uint2) * n_super * 8 * NT * 32 + sizeof(uint32_t) * tile_words;
-  auto kernel = wire_channelizer_cr1_kernel<NT>;
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kTile = WARPS * 16 * MTILES;
+  const size_t smem = (kStageB ? sizeof(uint2) * n_super * 8 * NT * 32 : 0) +
+                      sizeof(uint32_t) * tile_words;
+  auto kernel = wire_bits_kernel<NT, WARPS, MTILES, BITS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -262,14 +334,12 @@ int launch(const uint8_t* raw, const float2* car, const uint2* frags, float* out
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int ais_wire_channelizer_cr1(const void* raw, const void* car,
-                                        const void* frags, void* out,
-                                        int n_bytes, int n_out, int n_super,
-                                        int tile_words, int decim, int q, int n_chan,
-                                        float unscale, void* stream) {
-  if (reinterpret_cast<uintptr_t>(raw) % 4 != 0 || n_out <= 0 || n_super <= 0)
+// By the channel count: one n-tile of columns up to 2 channels, two at 3-4.
+template <int WARPS, int MTILES, int BITS>
+int launch_for_channels(const void* raw, const void* car, const void* frags, void* out,
+                        int n_bytes, int n_out, int n_super, int tile_words, int decim,
+                        int q, int n_chan, float unscale, void* stream) {
+  if (reinterpret_cast<uintptr_t>(raw) % 4 != 0 || n_out <= 0 || n_super <= 0 || q <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto r = static_cast<const uint8_t*>(raw);
   auto c = static_cast<const float2*>(car);
@@ -279,15 +349,41 @@ extern "C" int ais_wire_channelizer_cr1(const void* raw, const void* car,
   switch (n_chan) {
     case 1:
     case 2:
-      return launch<1>(r, c, f, o, n_bytes, n_out, n_super, tile_words, decim, q, n_chan,
-                       unscale, s);
+      return launch<1, WARPS, MTILES, BITS>(r, c, f, o, n_bytes, n_out, n_super, tile_words,
+                                            decim, q, n_chan, unscale, s);
     case 3:
     case 4:
-      return launch<2>(r, c, f, o, n_bytes, n_out, n_super, tile_words, decim, q, n_chan,
-                       unscale, s);
+      return launch<2, WARPS, MTILES, BITS>(r, c, f, o, n_bytes, n_out, n_super, tile_words,
+                                            decim, q, n_chan, unscale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// K1: `decim` samples, one wire bit each, an output.
+extern "C" int ais_wire_channelizer_cr1(const void* raw, const void* car,
+                                        const void* frags, void* out,
+                                        int n_bytes, int n_out, int n_super,
+                                        int tile_words, int decim, int q, int n_chan,
+                                        float unscale, void* stream) {
+  return launch_for_channels<kWarps, kMTiles, 1>(raw, car, frags, out, n_bytes, n_out, n_super,
+                                                 tile_words, decim, q, n_chan, unscale, stream);
+}
+
+// K3: `decim` complex samples, two wire bits each, an output; `frags`
+// hold the 2 ntaps bit-stream taps, `tile_words` the words of a tile of
+// `tile_outputs` outputs, which must be this build's.
+extern "C" int ais_wire_channelizer_ci1_mma(const void* raw, const void* car,
+                                            const void* frags, void* out,
+                                            int n_bytes, int n_out, int n_super,
+                                            int tile_words, int tile_outputs, int decim,
+                                            int q, int n_chan, float unscale, void* stream) {
+  if (tile_outputs != kCi1Warps * 16 * kCi1MTiles) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_for_channels<kCi1Warps, kCi1MTiles, 2>(raw, car, frags, out, n_bytes, n_out,
+                                                       n_super, tile_words, 2 * decim, q, n_chan,
+                                                       unscale, stream);
 }
 
 extern "C" const char* ais_cuda_error_string(int err) {

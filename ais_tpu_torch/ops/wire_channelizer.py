@@ -44,11 +44,28 @@ PyTorch, from the packed buffer.
 K3 (ci1; cd1 after `ci1_from_bytes_cd1`) and K4 (ci2, ci4) are the
 counterparts of `_pallas_wire_channelizer_ci1` and of
 `pallas_wire_channelizer` for ci2/ci4: y as in K5 (ops/channelizer.py)
-on the decoded complex sample, with the baseband carrier.  Their CUDA
-kernels share K5's template in `csrc/channelizer.cu` and differ only in
-the decode prologue; their plain versions are the port's decoder
-(ops/convert.py) followed by K5's plain version.  `wire_channelizer`
-dispatches on the format and the tensor's device.
+on the decoded complex sample, with the baseband carrier.  Their plain
+versions are the port's decoder (ops/convert.py) followed by K5's plain
+version.  K4's CUDA kernels, and K3's for the geometries its own form
+does not take, share K5's template in `csrc/channelizer.cu` and differ
+only in the decode prologue.
+
+K3's own form is K1's on the wire's bit sequence.  A ci1 sample is
+x[n] = I[n] + jQ[n], both +-1, and the bytes hold I0 Q0 I1 Q1 .. MSB
+first, so with b[2n] = I[n], b[2n + 1] = Q[n] and the baseband carrier
+folded into g_c[k] = h[k] e^{-j w_c k} (`fold_taps(..., baseband=True)`):
+
+    y[c, m] = car_c[m*D] * sum_{i < 2 ntaps} G_c[i] * b[2*m*D + i],
+    G_c[2k] = g_c[k], G_c[2k + 1] = j g_c[k]          (`bit_stream_taps`)
+
+the same product with 2 ntaps taps and a decimation of 2D bits, rotated
+by the table at index m*D mod q.  `ci1_mma_supported` says which
+geometries it takes (periodic carriers up to MAX_CARRIER_PERIOD, B and a
+tile's words within shared memory); `PackedWireChannelizer` builds the
+fragments once, `wire_channelizer_packed` launches the kernel (the
+second entry point of `csrc/wire_channelizer.cu`), and
+`wire_channelizer_ci1_folded` is the form in plain PyTorch.  The choice
+between the two CUDA kernels of K3 follows from the geometry alone.
 """
 
 from __future__ import annotations
@@ -88,6 +105,7 @@ MAX_CHANNELS = 4
 # taps (8 mma k-steps of 16), in which lane t of a quad owns 32
 # consecutive taps of each of its rows: one 32-bit window of wire bits.
 TILE_OUTPUTS = 256
+CI1_TILE_OUTPUTS = 384      # K3: 12 warps of 32 outputs (K1: 4 of 64)
 SUPER_TAPS = 128
 MAX_SMEM_BYTES = 232_448
 # fp16 parts: 11 significant bits each, so hi + lo carries 22; below
@@ -174,6 +192,29 @@ def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,
     return False
 
 
+def ci1_mma_takes(ntaps: int, decim: int, n_chan: int, period: int | None) -> bool:
+    """True when K3's 1-bit tensor-core form takes a geometry whose
+    carrier table has `period` entries (None: no periodic table): 1 to
+    MAX_CHANNELS channels, a period of at most MAX_CARRIER_PERIOD, and
+    the 2*ntaps bit-stream taps with one tile's words within a block's
+    shared memory."""
+    if not 1 <= n_chan <= MAX_CHANNELS or period is None or period > MAX_CARRIER_PERIOD:
+        return False
+    return kernel_smem_bytes(2 * ntaps, 2 * decim, n_chan, CI1_TILE_OUTPUTS) <= MAX_SMEM_BYTES
+
+
+def ci1_mma_supported(ntaps: int, decim: int, offsets_hz, sample_rate: float,
+                      n_in: int | None = None) -> bool:
+    """`ci1_mma_takes` from the channels' offsets (the period of their
+    baseband carriers); with `n_in`, also whole bytes, whole decimation
+    rows and at least one output.  Every other ci1 geometry stays on the
+    template kernel (`wire_channelizer_supported("ci1", ...)`)."""
+    if not offsets_hz or (n_in is not None and (n_in % 4 or n_in % decim or n_in < ntaps)):
+        return False
+    period = _k5.carrier_table_period(offsets_hz, sample_rate)
+    return ci1_mma_takes(int(ntaps), int(decim), len(offsets_hz), period)
+
+
 def carrier_table(offsets_hz, sample_rate: float) -> np.ndarray:
     """(n_chan, q, 2) float32: entry [c, i] is e^{-j2pi f_c i / fs} with
     f_c = off_c + fs/4; float64 phase on the host."""
@@ -196,25 +237,29 @@ def n_column_tiles(n_chan: int) -> int:
     return -(-4 * int(n_chan) // 8)
 
 
-def tile_words(ntaps: int, decim: int) -> int:
+def tile_words(ntaps: int, decim: int, tile_outputs: int = TILE_OUTPUTS) -> int:
     """32-bit words of wire bits a tile stages: up to the last row's last
-    window, plus the word after it that the funnel shift reads."""
-    last = (TILE_OUTPUTS - 1) * decim + 32 * 3 + (n_super_steps(ntaps) - 1) * SUPER_TAPS
+    window, plus the word after it that the funnel shift reads.  `ntaps`
+    and `decim` count wire bits (for ci1: twice the samples)."""
+    last = (tile_outputs - 1) * decim + 32 * 3 + (n_super_steps(ntaps) - 1) * SUPER_TAPS
     return (last >> 5) + 2
 
 
-def kernel_smem_bytes(ntaps: int, decim: int, n_chan: int) -> int:
+def kernel_smem_bytes(ntaps: int, decim: int, n_chan: int,
+                      tile_outputs: int = TILE_OUTPUTS) -> int:
     frag_bytes = n_super_steps(ntaps) * 8 * n_column_tiles(n_chan) * 32 * 8
-    return frag_bytes + 4 * tile_words(ntaps, decim)
+    return frag_bytes + 4 * tile_words(ntaps, decim, tile_outputs)
 
 
-def fold_taps(taps, offsets_hz, sample_rate: float) -> np.ndarray:
+def fold_taps(taps, offsets_hz, sample_rate: float, baseband: bool = False) -> np.ndarray:
     """(n_chan, ntaps) complex128: g_c[k] = h[k] e^{-j2pi f_c k / fs} with
-    f_c = off_c + fs/4, float64 phase (as `carrier_table`, unrounded)."""
+    f_c = off_c + fs/4 (cr1), or f_c = off_c with `baseband` (ci1);
+    float64 phase (as `carrier_table`, unrounded)."""
     h = np.asarray(taps, np.float64)
     k = np.arange(h.size, dtype=np.float64)
     out = np.empty((len(offsets_hz), h.size), np.complex128)
-    for c, f in enumerate(_if_offsets(offsets_hz, sample_rate)):
+    freqs = offsets_hz if baseband else _if_offsets(offsets_hz, sample_rate)
+    for c, f in enumerate(freqs):
         phase = np.remainder(-2.0 * np.pi * (f / float(sample_rate)) * k, 2.0 * np.pi)
         out[c] = h * np.exp(1j * phase)
     return out
@@ -228,6 +273,14 @@ def fold_taps_from_table(taps: np.ndarray, car: np.ndarray) -> np.ndarray:
     e = car[..., 0] + 1j * car[..., 1]                       # (n_chan, q)
     k = np.arange(np.asarray(taps).size) % e.shape[1]
     return np.asarray(taps, np.float64) * e[:, k] * np.conj(e[:, :1])
+
+
+def bit_stream_taps(g: np.ndarray) -> np.ndarray:
+    """(n_chan, ntaps) folded taps -> (n_chan, 2*ntaps) taps on ci1's bit
+    sequence I0 Q0 I1 Q1 ..: G[2k] = g[k] meets I[k], G[2k + 1] = j g[k]
+    meets Q[k], so that sum_i G[i] b[i] = sum_k g[k] (I[k] + j Q[k])."""
+    g = np.asarray(g, np.complex128)
+    return np.stack([g, 1j * g], axis=-1).reshape(g.shape[0], -1)
 
 
 def split_taps(g: np.ndarray):
@@ -316,15 +369,17 @@ def folded_taps(g: np.ndarray, device=None) -> FoldedTaps:
     return FoldedTaps(torch.from_numpy(frags).to(device), unscale, g.shape[1])
 
 
-def tile_wire_words(raw: np.ndarray, tile: int, ntaps: int, decim: int) -> np.ndarray:
+def tile_wire_words(raw: np.ndarray, tile: int, ntaps: int, decim: int,
+                    tile_outputs: int = TILE_OUTPUTS) -> np.ndarray:
     """The uint32 words a block stages for output tile `tile`.
 
-    The tile's first bit is bit tile*TILE_OUTPUTS*decim of the wire: the
-    first bit of byte tile*32*decim, a whole 4-byte word for any decim.
-    Each word is byte-swapped so that its wire bit n (MSB first in its
-    byte) sits at bit 31 - n; past the buffer's end the words are zero."""
-    start = tile * (TILE_OUTPUTS // 8) * decim
-    n = tile_words(ntaps, decim)
+    The tile's first bit is bit tile*tile_outputs*decim of the wire: the
+    first bit of byte tile*(tile_outputs/8)*decim, a whole 4-byte word for
+    any decim (a tile is a multiple of 32 outputs).  Each word is
+    byte-swapped so that its wire bit n (MSB first in its byte) sits at
+    bit 31 - n; past the buffer's end the words are zero."""
+    start = tile * (tile_outputs // 8) * decim
+    n = tile_words(ntaps, decim, tile_outputs)
     chunk = np.zeros(4 * n, np.uint8)
     have = np.asarray(raw, np.uint8)[start: start + 4 * n]
     chunk[: have.size] = have
@@ -346,23 +401,39 @@ def a_registers(win: int, j: int) -> tuple:
                  for kg in (0, 1))
 
 
-def wire_channelizer_cr1_folded(raw_u8: torch.Tensor, car: torch.Tensor,
-                                folded: FoldedTaps, decim: int, n_in: int) -> torch.Tensor:
-    """The kernel's form in plain PyTorch: the +-1 samples through the
-    folded taps as the packed buffer holds them ((hi + lo) * unscale),
-    then one rotation an output by car_c[m*D mod q]."""
+def _folded_form(raw_u8: torch.Tensor, car: torch.Tensor, folded: FoldedTaps, n_bits: int,
+                 bit_decim: int, car_stride: int) -> torch.Tensor:
+    """The 1-bit kernel's arithmetic in plain PyTorch: the wire's +-1 bits
+    through the folded taps as the packed buffer holds them ((hi + lo) *
+    unscale) at a decimation of `bit_decim` bits, then one rotation an
+    output by car_c[m*car_stride mod q]."""
     n_chan, q = car.shape[0], car.shape[1]
     g = unpack_fragments(folded.frags.cpu().numpy(), folded.unscale, folded.ntaps, n_chan)
-    s = unpack_bits_pm1(raw_u8, n_in)
+    s = unpack_bits_pm1(raw_u8, n_bits)
     dev = raw_u8.device
     rows = []
     for c in range(n_chan):
-        re = fir_polyphase(s, torch.tensor(g[c].real, dtype=torch.float32, device=dev), decim)
-        im = fir_polyphase(s, torch.tensor(g[c].imag, dtype=torch.float32, device=dev), decim)
-        idx = (torch.arange(re.numel(), device=dev, dtype=torch.int64) * decim) % q
+        re = fir_polyphase(s, torch.tensor(g[c].real, dtype=torch.float32, device=dev), bit_decim)
+        im = fir_polyphase(s, torch.tensor(g[c].imag, dtype=torch.float32, device=dev), bit_decim)
+        idx = (torch.arange(re.numel(), device=dev, dtype=torch.int64) * car_stride) % q
         rot = torch.complex(car[c, idx, 0], car[c, idx, 1])
         rows.append(torch.complex(re, im) * rot)
     return torch.stack(rows)
+
+
+def wire_channelizer_cr1_folded(raw_u8: torch.Tensor, car: torch.Tensor,
+                                folded: FoldedTaps, decim: int, n_in: int) -> torch.Tensor:
+    """K1's form in plain PyTorch: one bit a sample, folded taps, one
+    rotation an output by car_c[m*D mod q]."""
+    return _folded_form(raw_u8, car, folded, n_in, decim, decim)
+
+
+def wire_channelizer_ci1_folded(raw_u8: torch.Tensor, car: torch.Tensor,
+                                folded: FoldedTaps, decim: int, n_in: int) -> torch.Tensor:
+    """K3's 1-bit form in plain PyTorch: ci1's 2*n_in wire bits through
+    the 2*ntaps bit-stream taps of `folded` at a decimation of 2D bits,
+    rotated by car_c[m*D mod q]."""
+    return _folded_form(raw_u8, car, folded, 2 * n_in, 2 * decim, decim)
 
 
 def wire_channelizer_cr1_plain(raw_u8: torch.Tensor, car: torch.Tensor,
@@ -380,14 +451,17 @@ def wire_channelizer_cr1_plain(raw_u8: torch.Tensor, car: torch.Tensor,
     return torch.complex(y[:, 0], y[:, 1])
 
 
-def _wire_channelizer_cr1_cuda(raw_u8: torch.Tensor, car: torch.Tensor,
-                               taps: torch.Tensor, decim: int, n_in: int,
-                               folded: FoldedTaps | None) -> torch.Tensor:
+def _wire_bits_cuda(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor, taps: torch.Tensor,
+                    decim: int, n_in: int, folded: FoldedTaps | None) -> torch.Tensor:
+    """Launch the 1-bit tensor-core kernel: K1 for `fmt` "cr1" (one wire
+    bit a sample), K3's own form for "ci1" (two)."""
+    bits = {"cr1": 1, "ci1": 2}[fmt]
+    tile = TILE_OUTPUTS if fmt == "cr1" else CI1_TILE_OUTPUTS
     dev = raw_u8.device
     if raw_u8.dtype != torch.uint8 or raw_u8.dim() != 1 or not raw_u8.is_contiguous():
         raise ValueError("raw_u8 must be a contiguous 1-D uint8 tensor")
-    if raw_u8.numel() != n_in // 8 or n_in % 8 or n_in % decim:
-        raise ValueError(f"wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
+    if (n_in * bits) % 8 or raw_u8.numel() != n_in * bits // 8 or n_in % decim:
+        raise ValueError(f"{fmt} wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
     if car.dtype != torch.float32 or car.dim() != 3 or car.shape[-1] != 2:
         raise ValueError("carrier must be a (n_chan, q, 2) float32 table")
     if taps.dtype != torch.float32 or taps.dim() != 1:
@@ -401,32 +475,35 @@ def _wire_channelizer_cr1_cuda(raw_u8: torch.Tensor, car: torch.Tensor,
     n_out = _n_out(n_in, ntaps, decim)
     if n_out <= 0:
         raise ValueError(f"n_in={n_in} is shorter than the filter ({ntaps} taps)")
-    if kernel_smem_bytes(ntaps, decim, n_chan) > MAX_SMEM_BYTES:
+    bit_taps, bit_decim = bits * ntaps, bits * decim
+    if kernel_smem_bytes(bit_taps, bit_decim, n_chan, tile) > MAX_SMEM_BYTES:
         raise NotImplementedError(
             f"{ntaps} taps at decimation {decim} for {n_chan} channels do not fit "
             f"a block's shared memory")
     if folded is None:
         # No module holds the folded taps: derive them from the table
-        # (a device-to-host copy; `WireChannelizer` never takes this).
-        folded = folded_taps(
-            fold_taps_from_table(taps.cpu().numpy(), car.cpu().numpy()), device=dev)
-    want = (n_super_steps(ntaps), 8, n_column_tiles(n_chan), 32, 2)
+        # (a device-to-host copy; the modules never take this).
+        g = fold_taps_from_table(taps.cpu().numpy(), car.cpu().numpy())
+        folded = folded_taps(bit_stream_taps(g) if fmt == "ci1" else g, device=dev)
+    want = (n_super_steps(bit_taps), 8, n_column_tiles(n_chan), 32, 2)
     frags = folded.frags
     if frags.dtype != torch.int32 or tuple(frags.shape) != want or frags.device != dev \
-            or not frags.is_contiguous() or folded.ntaps != ntaps:
-        raise ValueError(f"folded taps {tuple(frags.shape)} do not fit {ntaps} taps, "
+            or not frags.is_contiguous() or folded.ntaps != bit_taps:
+        raise ValueError(f"folded taps {tuple(frags.shape)} do not fit {bit_taps} taps, "
                          f"{n_chan} channels (want int32 {want} on {dev})")
     if raw_u8.data_ptr() % 4:
         raw_u8 = raw_u8.clone()     # the kernel reads the wire in aligned words
     car = car.contiguous()
     out = torch.empty((n_chan, n_out), dtype=torch.complex64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.WIRE_CHANNELIZER_CR1(
-        raw_u8.data_ptr(), car.data_ptr(), frags.data_ptr(),
-        torch.view_as_real(out).data_ptr(),
-        raw_u8.numel(), n_out, want[0], tile_words(ntaps, decim), decim, q, n_chan,
-        folded.unscale, stream,
-    )
+    words = tile_words(bit_taps, bit_decim, tile)
+    head = (raw_u8.data_ptr(), car.data_ptr(), frags.data_ptr(),
+            torch.view_as_real(out).data_ptr(), raw_u8.numel(), n_out, want[0], words)
+    tail = (decim, q, n_chan, folded.unscale, stream)
+    if fmt == "cr1":
+        _build.WIRE_CHANNELIZER_CR1(*head, *tail)
+    else:
+        _build.WIRE_CHANNELIZER_CI1_MMA(*head, tile, *tail)
     return out
 
 
@@ -438,7 +515,7 @@ def wire_channelizer_cr1(raw_u8: torch.Tensor, car: torch.Tensor,
     `folded` is the kernel's form of the taps (`folded_taps`); without
     it the kernel's wrapper derives them from `car` and `taps`."""
     if raw_u8.device.type == "cuda":
-        return _wire_channelizer_cr1_cuda(raw_u8, car, taps, decim, n_in, folded)
+        return _wire_bits_cuda("cr1", raw_u8, car, taps, decim, n_in, folded)
     if raw_u8.device.type == "cpu":
         return wire_channelizer_cr1_plain(raw_u8, car, taps, decim, n_in)
     raise NotImplementedError(f"no wire channelizer for device {raw_u8.device}")
@@ -452,15 +529,23 @@ def wire_channelizer_packed_plain(fmt: str, raw_u8: torch.Tensor, car: torch.Ten
 
 
 def wire_channelizer_packed(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor,
-                            taps: torch.Tensor, *, decim: int, n_in: int) -> torch.Tensor:
-    """K3 (fmt "ci1") or K4 ("ci2", "ci4") on the tensor's device: the
+                            taps: torch.Tensor, *, decim: int, n_in: int,
+                            folded: FoldedTaps | None = None) -> torch.Tensor:
+    """K3 (fmt "ci1") or K4 ("ci2", "ci4") on the tensor's device: a
     CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    Returns (n_chan, n_out) complex64."""
+    Returns (n_chan, n_out) complex64.
+
+    On the card ci1 runs its 1-bit tensor-core form wherever
+    `ci1_mma_takes` accepts the geometry (`folded` is then that form's
+    taps, `PackedWireChannelizer.folded`; without it they are derived
+    from `car` and `taps`), and the template kernel everywhere else."""
     spec = PACKED[fmt]
     if raw_u8.dtype != torch.uint8 or n_in % spec.samples_per_byte \
             or raw_u8.numel() != n_in // spec.samples_per_byte:
         raise ValueError(f"{fmt} wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
     if raw_u8.device.type == "cuda":
+        if fmt == "ci1" and ci1_mma_takes(taps.numel(), decim, car.shape[0], car.shape[1]):
+            return _wire_bits_cuda("ci1", raw_u8, car, taps, decim, n_in, folded)
         return launch(spec.kernel, raw_u8, car, taps, decim, n_in)
     if raw_u8.device.type == "cpu":
         return wire_channelizer_packed_plain(fmt, raw_u8, car, taps, decim)
@@ -504,7 +589,9 @@ class WireChannelizer(torch.nn.Module):
 
 class PackedWireChannelizer(Channelizer):
     """ci1 / ci2 / ci4 wire bytes -> (n_chan, n_out) channels (K3, K4);
-    owns the taps and the baseband carrier table, as K5's module does."""
+    owns the taps and the baseband carrier table, as K5's module does,
+    and for ci1, where the geometry allows (`ci1_mma_supported`), the
+    bit-stream taps of K3's 1-bit form (`folded`, else None)."""
 
     def __init__(self, fmt: str, taps, decim: int, offsets_hz, sample_rate: float,
                  n_in: int, device=None):
@@ -514,8 +601,21 @@ class PackedWireChannelizer(Channelizer):
             raise ValueError(f"n_in={n_in} is not whole {fmt} bytes")
         super().__init__(taps, decim, offsets_hz, sample_rate, n_in, device=device)
         self.fmt = fmt
+        self.unscale = None
+        if fmt == "ci1" and ci1_mma_supported(self.taps.numel(), decim, offsets_hz,
+                                              sample_rate, n_in):
+            # The kernel's B operand, built once in float64 on the host.
+            g = fold_taps(self.taps.cpu().numpy(), offsets_hz, sample_rate, baseband=True)
+            frags, self.unscale = pack_fragments(bit_stream_taps(g))
+            self.register_buffer("frags", torch.from_numpy(frags).to(device))
+
+    @property
+    def folded(self) -> FoldedTaps | None:
+        if self.unscale is None:
+            return None
+        return FoldedTaps(self.frags, self.unscale, 2 * self.taps.numel())
 
     def forward(self, raw_u8: torch.Tensor, phase0s: torch.Tensor) -> torch.Tensor:
         car = rotate_carrier(self.carrier, phase0s)
-        return wire_channelizer_packed(self.fmt, raw_u8, car, self.taps,
-                                       decim=self.decim, n_in=self.n_in)
+        return wire_channelizer_packed(self.fmt, raw_u8, car, self.taps, decim=self.decim,
+                                       n_in=self.n_in, folded=self.folded)

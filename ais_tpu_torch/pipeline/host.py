@@ -40,6 +40,11 @@ class DecodedPacket:
         return frame_to_nmea(self.payload, self.designator)
 
     @property
+    def nmea_pdu(self) -> bytes:
+        """The sentence as ASCII bytes (the reference's `to_nmea` PDU port)."""
+        return self.nmea.encode("ascii")
+
+    @property
     def fields(self) -> dict:
         from ais_tpu_torch.decode.fields import parse_fields
 

@@ -419,6 +419,8 @@ class WidebandReceiver:
         self.recover_s = 0.0
         self._recover_demods: dict = {}
         self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
+        # (exec + fetch seconds, host seconds) of the last `collect`.
+        self.last_collect_s = (0.0, 0.0)
 
     @property
     def wire_overlap_samples(self) -> int:
@@ -607,7 +609,8 @@ class WidebandReceiver:
         """Wait for a submitted step and decode its packets.
 
         `collect_stats` accumulates exec_s (wait for the device result),
-        fetch_s (device-to-host copy) and host_s (the host back half)."""
+        fetch_s (device-to-host copy) and host_s (the host back half);
+        `last_collect_s` is this call's (exec + fetch, host) seconds."""
         t0 = time.perf_counter()
         if handle[1] is not None:
             handle[1].synchronize()
@@ -616,6 +619,7 @@ class WidebandReceiver:
         t2 = time.perf_counter()
         packets = self.decode_fetched(fetched)
         t3 = time.perf_counter()
+        self.last_collect_s = (t2 - t0, t3 - t2)
         st = self.collect_stats
         st["exec_s"] += t1 - t0
         st["fetch_s"] += t2 - t1

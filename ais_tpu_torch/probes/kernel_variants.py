@@ -19,8 +19,10 @@ inputs.  One JSON line a measurement; the first names the card.
                 tree's (other, this, this, other); K2's corr and mag2 are
                 compared bit for bit, K1's outputs by max |difference|.
                 K3, K4 (ci2, ci4), K5 and K5 on the full-length table run
-                the same way through the wrappers both trees have; each
-                child also reports max |err| against its plain version.
+                the same way through the wrappers both trees have (K3 in
+                the form the ci1 path runs: with the module's bit-stream
+                taps where the tree has the 1-bit form); each child also
+                reports max |err| against its plain version.
   variants      copies of csrc/wire_channelizer.cu and
                 csrc/matched_filter.cu with one constant changed (warps a
                 block, 16-row tiles a warp, threads a block, blocks a
@@ -31,6 +33,13 @@ inputs.  One JSON line a measurement; the first names the card.
                 operand from four bit positions a shift (the sign and
                 three exponent bits of an fp16) without the B operand to
                 match, to see what the integer pipe costs.
+                K3's 1-bit form (the same source, its own constants) under
+                other warps a block and tiles a warp, and with B read
+                through the L1 cache instead of staged in shared memory
+                (more blocks a multiprocessor); two timing-only variants
+                leave out the A operand's integer work or the mma.  They
+                run with `--only channelizer`; `--match k3_` picks them
+                alone.
                 The channelizer template (K3, K4, K5) takes its outputs a
                 thread, tile and threads at run time, so those variants
                 call this tree's library with another plan; the compile-
@@ -154,8 +163,15 @@ def channelizer_inputs(name: str):
     fmt = {"k3": "ci1", "k4_ci2": "ci2", "k4_ci4": "ci4"}[name]
     raw = torch.randint(0, 256, (n_in // wc.PACKED[fmt].samples_per_byte,), device=dev,
                         dtype=torch.uint8, generator=gen)
+    extra = {}
+    if fmt == "ci1" and hasattr(wc, "ci1_mma_supported"):
+        # As the ci1 path launches K3: the module's bit-stream taps.  (A
+        # checkout from before the 1-bit form runs the template.)
+        extra["folded"] = wc.PackedWireChannelizer(
+            "ci1", channel_taps(cfg), cfg.decimation, offsets, cfg.input_rate, n_in,
+            device=dev).folded
     return (lambda: wc.wire_channelizer_packed(fmt, raw, car, chan.taps, decim=chan.decim,
-                                               n_in=n_in),
+                                               n_in=n_in, **extra),
             lambda: wc.wire_channelizer_packed_plain(fmt, raw, car, chan.taps, chan.decim))
 
 
@@ -265,6 +281,92 @@ K2_VARIANTS = {
     "as_built": (128, 8), "threads64": (64, 16), "threads256": (256, 4),
     "threads128_any_occupancy": (128, None),
 }
+
+
+A_CONSTANT = """
+          a[0] = win[mt][0]; a[1] = win[mt][1]; a[2] = win[mt][0] ^ j; a[3] = win[mt][1] ^ j;
+"""
+_A_BUILD = r"\n +a\[0\] = and_xor.*?a\[3\] = [^\n]*\n"
+K3_VARIANTS = {
+    # name: (warps a block, 16-row tiles a warp, B staged in shared memory, other substitutions)
+    "k3_as_built": (12, 2, True, ()),
+    "k3_warps12_mtiles1": (12, 1, True, ()),
+    "k3_warps12_mtiles3": (12, 3, True, ()),
+    "k3_warps8_mtiles2": (8, 2, True, ()),
+    "k3_warps8_mtiles4": (8, 4, True, ()),
+    "k3_warps4_mtiles4": (4, 4, True, ()),
+    "k3_warps4_mtiles2": (4, 2, True, ()),
+    "k3_warps16_mtiles2": (16, 2, True, ()),
+    "k3_warps16_mtiles1": (16, 1, True, ()),
+    "k3_b_through_l1_warps4_mtiles4": (4, 4, False, ()),
+    "k3_b_through_l1_warps12_mtiles2": (12, 2, False, ()),
+    "k3_as_built_again": (12, 2, True, ()),
+    # Timing only (their outputs are wrong): one stage left out.
+    "k3_timing_only_a_without_shift_and_lop3": (12, 2, True, ((_A_BUILD, A_CONSTANT),)),
+    "k3_timing_only_no_mma": (12, 2, True, (
+        (r"for \(int nt = 0; nt < NT; \+\+nt\) mma_m16n8k16\(c\[mt\]\[nt\], a, b\[nt\]\.x, b\[nt\]\.y\);",
+         "for (int nt = 0; nt < NT; ++nt) c[mt][nt][0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3]) "
+         "& b[nt].x & b[nt].y);"),)),
+}
+
+
+def k3_variants(match: str = "") -> None:
+    """K3's 1-bit form at the bench geometry under other block shapes and
+    with B unstaged; each output-preserving one must reproduce this
+    tree's output bit for bit (an output's sum has the same order in all)."""
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops import channelizer as ch
+    from ais_tpu_torch.ops import wire_channelizer as wc
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    picked = {k: v for k, v in K3_VARIANTS.items() if re.search(match, k)}
+    if not picked:
+        return
+    started = [start_variant(_build.CSRC / "wire_channelizer.cu", (
+        (r"constexpr int kCi1Warps = \d+;", f"constexpr int kCi1Warps = {warps};"),
+        (r"constexpr int kCi1MTiles = \d+;", f"constexpr int kCi1MTiles = {mtiles};"),
+        (r"constexpr bool kStageB = \w+;", f"constexpr bool kStageB = {str(staged).lower()};"),
+        *subs), name) for name, (warps, mtiles, staged, subs) in picked.items()]
+    dev = torch.device("cuda")
+    cfg, n_in = bench_geometry()
+    mod = wc.PackedWireChannelizer("ci1", channel_taps(cfg), cfg.decimation, cfg.offsets_hz,
+                                   cfg.input_rate, n_in, device=dev)
+    car = ch.rotate_carrier(mod.carrier, torch.tensor([0.4, 2.9], device=dev)).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    raw = torch.randint(0, 256, (n_in // 4,), device=dev, dtype=torch.uint8, generator=gen)
+    ref = wc.wire_channelizer_packed("ci1", raw, car, mod.taps, decim=mod.decim, n_in=n_in,
+                                     folded=mod.folded)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream().cuda_stream
+    bit_taps, n_chan = 2 * mod.taps.numel(), car.shape[0]
+    for start, (name, (warps, mtiles, staged, _)) in zip(started, picked.items()):
+        lib, regs, _ = finish_variant(start)
+        fn = lib.ais_wire_channelizer_ci1_mma
+        fn.argtypes = _build.WIRE_CHANNELIZER_CI1_MMA.argtypes
+        fn.restype = ctypes.c_int
+        tile = warps * 16 * mtiles
+        words = wc.tile_words(bit_taps, 2 * mod.decim, tile)
+        got = torch.empty_like(ref)
+
+        def k3():
+            rc = fn(raw.data_ptr(), car.data_ptr(), mod.frags.data_ptr(),
+                    torch.view_as_real(got).data_ptr(), raw.numel(), mod.n_out,
+                    wc.n_super_steps(bit_taps), words, tile, mod.decim, car.shape[1], n_chan,
+                    mod.unscale, stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        try:
+            ms = back_to_back_ms(k3, 20)
+        except RuntimeError as err:          # a shape the card refuses: say so and go on
+            out(kernel="K3", variant=name, outputs_a_tile=tile, registers=regs, refused=str(err))
+            continue
+        smem = (wc.kernel_smem_bytes(bit_taps, 2 * mod.decim, n_chan, tile) if staged
+                else 4 * words)
+        out(kernel="K3", variant=name, outputs_a_tile=tile, b_staged=staged, smem=smem,
+            registers=regs, ms=ms, equals_as_built=bool(torch.equal(got, ref)))
 
 
 def start_variant(source: Path, subs, name: str):
@@ -620,6 +722,7 @@ def main(argv=None) -> int:
         if args.only in (None, "k1k2"):
             variants()
         if args.only in (None, "channelizer"):
+            k3_variants(args.match)
             fma_peak()
             clocks_under_k5()
             channelizer_variants(args.match)

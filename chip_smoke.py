@@ -16,17 +16,22 @@ overflow recovery, the CLI), in phases, one result line each:
   2. build: nvcc builds the kernels of `ais_tpu_torch/csrc/` (sm_90a);
   3. probe: K6 (2x + y on one tile) against its plain version;
   4. K1 (cr1 wire channelizer), K2 (matched filter), K3 (ci1 wire
-     channelizer), K4 (ci2, ci4 wire channelizers) and K5 (float
+     channelizer, in its 1-bit tensor-core form through the module's
+     fragments), K4 (ci2, ci4 wire channelizers) and K5 (float
      channelizer), each against its plain PyTorch version at the
      paths' shapes, with the median time of each, its bound (the least
      time the card could take) and a library call's time where one
      PyTorch call computes the same function; K1 also at 1, 3 and 4
      channels, K2 also at rows off its tile and odd tap counts; k5_full:
      K5 with the full-length carrier table of a 50 ppm radio at the bench
-     n_in; k5_shapes: K5, K4 and K3 off the bench geometry (other channel
+     n_in; k3_template: K3's other kernel (the channelizer template's ci1
+     instantiation, which takes the geometries the 1-bit form refuses) on
+     a full-length table at the shape of the wire_ci1_ppm path; k5_shapes:
+     K5, K4 and both kernels of K3 off the bench geometry (other channel
      counts and decimations, short taps, a tile that ends inside n_out,
-     every count of outputs a thread); fir_only: the channelizers'
-     yardstick;
+     a wire that ends inside a word, every count of outputs a thread),
+     K5 timed at the 250 ksps path's one channel and D = 5, and at D = 1;
+     fir_only: the channelizers' yardstick;
   5. main path (cr1): a warm-up decode whose packets must match the
      transmitted ones (content parity 1.0), then timed steps, then the
      time of each stage;
@@ -34,7 +39,11 @@ overflow recovery, the CLI), in phases, one result line each:
      (parity 1.0), its step time and stages;
   7. wire_formats: one `decode_wire` per format (ci16, ci8, ci4, ci2,
      ci1, cd1) of the same scene: parity 1.0 for ci16, ci8 and ci1,
-     cd1's packets equal to ci1's, at least 0.99 for ci4 and ci2;
+     cd1's packets equal to ci1's, at least 0.99 for ci4 and ci2; ci1
+     and cd1 launch K3's 1-bit form once a step and the template never;
+     wire_ci1_ppm: `decode_wire(raw, "ci1")` with the channels of a
+     device 50 ppm high (8-block steps): no periodic carrier, so K3's
+     template kernel on the full-length table, parity 1.0;
   8. radio_wideband_ppm: `AisRadio(sample_rate=2.4e6, ppm=50)` (8-block
      steps) runs the scene as a device 50 ppm high records it, in
      1 << 20-sample chunks: every K5 launch on the full-length table;
@@ -99,6 +108,7 @@ TOLERANCE = "|err| <= 2e-5*max|y| + 2e-4*|y|"
 WIRE_FORMATS = ("ci16", "ci8", "ci4", "ci2", "ci1", "cd1")
 RADIO_PPM = 50.0           # LO error of the ppm radio phase
 OVERFLOW_BLOCKS, OVERFLOW_K = 8, 3
+PPM_WIRE_BLOCKS = 8        # blocks a step of the wire_ci1_ppm path
 CHANNELS_RATE, CHANNELS_SECONDS = 250e3, 21.0
 BURST_SPAN_2P4M = 64500    # the scene's packet span at 2.4 Msps
 REPO = Path(__file__).resolve().parent
@@ -128,10 +138,10 @@ def packet_diff(found, want: list) -> dict:
     return {"only_port": sorted(got - ref), "only_reference": sorted(ref - got)}
 
 
-def bench_geometry():
-    """The benchmark's receiver geometry: 96 blocks, K = 24, 14 valid
-    lanes per (channel, block) in the compact directory; n_in aligned as
-    the receiver aligns it."""
+def bench_geometry(blocks: int = N_BLOCKS):
+    """The benchmark's receiver geometry: 96 blocks (or `blocks`), K = 24,
+    14 valid lanes per (channel, block) in the compact directory; n_in
+    aligned as the receiver aligns it."""
     import dataclasses
 
     from ais_tpu_torch.pipeline.wideband import WidebandConfig, aligned_n_in, num_taps
@@ -139,10 +149,17 @@ def bench_geometry():
     cfg = WidebandConfig()
     cfg = cfg._replace(
         demod=dataclasses.replace(cfg.demod, max_bursts_per_block=24),
-        compact_lanes=14 * 2 * N_BLOCKS,
+        compact_lanes=14 * 2 * blocks,
     )
-    n48 = cfg.block_len + cfg.core_len * (N_BLOCKS - 1)
+    n48 = cfg.block_len + cfg.core_len * (blocks - 1)
     return cfg, aligned_n_in(cfg, (n48 - 1) * cfg.decimation + num_taps(cfg))
+
+
+def ppm_shifted(cfg):
+    """`cfg` with its channels where a device RADIO_PPM high sees them."""
+    from ais_tpu_torch.pipeline.radio import ppm_offset_hz
+
+    return cfg._replace(offsets_hz=tuple(o + ppm_offset_hz(RADIO_PPM) for o in cfg.offsets_hz))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -293,8 +310,14 @@ def hold_channelizer(phase: str, kernel, plain, row: dict, **fields) -> dict:
     inputs (TOLERANCE), then time both; returns the kernels-line row."""
     import torch
 
+    from ais_tpu_torch import _build
+
+    _build.reset_launch_counts()
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
+    launched = {k: n for k, n in _build.launch_counts().items() if n}
+    if launched != {row["name"]: 1}:
+        raise RuntimeError(f"{phase}: launched {launched}, not {row['name']} once")
     max_err, ok = channelizer_error(got, ref)
     del got, ref
     row = {**row, "route": "cuda", "max_abs_err": max_err,
@@ -366,10 +389,10 @@ def phase_k1(cfg, n_in: int) -> dict:
                                      folded=chan.folded),
         lambda: wire_channelizer_cr1_plain(raw, car, chan.taps, chan.decim, n_in),
         {"name": "wire_channelizer_cr1", "source": "ais_tpu_torch/csrc/wire_channelizer.cu",
-         "replaces": "ais_tpu/ops/pallas_fir.py:630",
+         "replaces": "ais_tpu/ops/pallas_fir.py:630", "n_in": n_in,
          **channelizer_bound(n_in, chan.n_out, taps.size, n_chan, n_in / 8, q, 0),
          "tensor_core_flop": mma_flop},
-        shape=[n_chan, chan.n_out], n_in=n_in)
+        shape=[n_chan, chan.n_out])
     # The bound is the fp32 rate outside the tensor cores (the contract is
     # an fp32 result); the sum itself runs in them, in fp16 passes.
     row["tensor_core_share_of_fp16_peak"] = (
@@ -408,7 +431,8 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
         Channelizer, freq_xlating_polyphase, freq_xlating_polyphase_plain, rotate_carrier,
     )
     from ais_tpu_torch.ops.wire_channelizer import (
-        PACKED, wire_channelizer_packed, wire_channelizer_packed_plain,
+        PACKED, PackedWireChannelizer, n_column_tiles, n_super_steps, wire_channelizer_packed,
+        wire_channelizer_packed_plain,
     )
     from ais_tpu_torch.pipeline.wideband import channel_taps
 
@@ -419,22 +443,40 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
     rng = np.random.default_rng(SEED + 1)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shape = [len(cfg.offsets_hz), chan.n_out]
+    # K3 as the ci1 and cd1 paths launch it: the module's bit-stream taps.
+    ci1 = PackedWireChannelizer("ci1", channel_taps(cfg), decim, cfg.offsets_hz, cfg.input_rate,
+                                n_in, device=dev)
+    if ci1.folded is None:
+        raise RuntimeError("the bench geometry should take K3's 1-bit form")
+    # Its tensor-core passes: one m16n8k16 (4096 flop) for every 16 outputs,
+    # k-step of the padded 2*ntaps bit-stream taps and n-tile.
+    mma_flop = (4096.0 * -(-chan.n_out // 16) * n_super_steps(2 * taps.numel()) * 8
+                * n_column_tiles(shape[0]))
     rows = []
-    for phase, fmt, replaces in (("k3", "ci1", ":707"), ("k4_ci2", "ci2", ":784"),
-                                 ("k4_ci4", "ci4", ":784")):
+    for phase, fmt, name, source, replaces, folded in (
+            ("k3", "ci1", "wire_channelizer_ci1_mma", "wire_channelizer.cu", ":707", ci1.folded),
+            ("k4_ci2", "ci2", "wire_channelizer_ci2", "channelizer.cu", ":784", None),
+            ("k4_ci4", "ci4", "wire_channelizer_ci4", "channelizer.cu", ":784", None)):
         raw = torch.randint(0, 256, (n_in // PACKED[fmt].samples_per_byte,), device=dev,
                             dtype=torch.uint8, generator=gen)
         car = rotate_carrier(chan.carrier, random_phase0s(cfg, rng))
         rows.append(hold_channelizer(
             phase,
-            lambda: wire_channelizer_packed(fmt, raw, car, taps, decim=decim, n_in=n_in),
+            lambda: wire_channelizer_packed(fmt, raw, car, taps, decim=decim, n_in=n_in,
+                                            folded=folded),
             lambda: wire_channelizer_packed_plain(fmt, raw, car, taps, decim),
-            {"name": f"wire_channelizer_{fmt}", "source": "ais_tpu_torch/csrc/channelizer.cu",
-             "replaces": "ais_tpu/ops/pallas_fir.py" + replaces,
+            {"name": name, "source": "ais_tpu_torch/csrc/" + source,
+             "replaces": "ais_tpu/ops/pallas_fir.py" + replaces, "n_in": n_in,
              **channelizer_bound(n_in, chan.n_out, taps.numel(), shape[0], raw.numel(),
-                                 car.shape[1], 6)},
-            shape=shape, n_in=n_in, fmt=fmt))
+                                 car.shape[1], 6),
+             **({"tensor_core_flop": mma_flop} if fmt == "ci1" else {})},
+            shape=shape, fmt=fmt))
         del raw
+    k3 = rows[0]
+    k3["tensor_core_share_of_fp16_peak"] = (
+        mma_flop / PEAK_FP16_TENSOR_FLOPS * 1e3 / k3["ms_back_to_back"])
+    log("k3_share", name=k3["name"], share_of_bound=k3["bound_ms"] / k3["ms_back_to_back"],
+        tensor_core_share_of_fp16_peak=k3["tensor_core_share_of_fp16_peak"])
     x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
                       torch.randn(n_in, device=dev, generator=gen)) * 0.3
     car = rotate_carrier(chan.carrier, random_phase0s(cfg, rng))
@@ -443,13 +485,48 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
         lambda: freq_xlating_polyphase(x, car, taps, decim=decim),
         lambda: freq_xlating_polyphase_plain(x, car, taps, decim),
         {"name": "channelizer", "source": "ais_tpu_torch/csrc/channelizer.cu",
-         "replaces": "ais_tpu/ops/pallas_fir.py:171",
+         "replaces": "ais_tpu/ops/pallas_fir.py:171", "n_in": n_in,
          **channelizer_bound(n_in, chan.n_out, taps.numel(), shape[0], 8.0 * n_in,
                              car.shape[1], 6)},
-        shape=shape, n_in=n_in, input_mb=x.numel() * 8 / 1e6))
+        shape=shape, input_mb=x.numel() * 8 / 1e6))
     del x
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_k3_template() -> dict:
+    """K3's other kernel, the channelizer template's ci1 instantiation, at
+    the shape the wire_ci1_ppm path gives it: 8-block steps, the channels
+    of a device 50 ppm high, so no periodic carrier and a full-length
+    table, which the 1-bit form refuses."""
+    import torch
+
+    from ais_tpu_torch.ops.channelizer import rotate_carrier
+    from ais_tpu_torch.ops.wire_channelizer import (
+        PackedWireChannelizer, wire_channelizer_packed, wire_channelizer_packed_plain,
+    )
+    from ais_tpu_torch.pipeline.wideband import channel_taps
+
+    dev = torch.device("cuda")
+    cfg, n_in = bench_geometry(PPM_WIRE_BLOCKS)
+    cfg = ppm_shifted(cfg)
+    chan = PackedWireChannelizer("ci1", channel_taps(cfg), cfg.decimation, cfg.offsets_hz,
+                                 cfg.input_rate, n_in, device=dev)
+    if chan.folded is not None or not chan.full_table:
+        raise RuntimeError("the 50 ppm offsets should take the template on a full-length table")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    raw = torch.randint(0, 256, (n_in // 4,), device=dev, dtype=torch.uint8, generator=gen)
+    car = rotate_carrier(chan.carrier, random_phase0s(cfg, np.random.default_rng(SEED + 5)))
+    return hold_channelizer(
+        "k3_template",
+        lambda: wire_channelizer_packed("ci1", raw, car, chan.taps, decim=chan.decim, n_in=n_in),
+        lambda: wire_channelizer_packed_plain("ci1", raw, car, chan.taps, chan.decim),
+        {"name": "wire_channelizer_ci1", "source": "ais_tpu_torch/csrc/channelizer.cu",
+         "replaces": "ais_tpu/ops/pallas_fir.py:707", "n_in": n_in,
+         **channelizer_bound(n_in, chan.n_out, chan.taps.numel(), car.shape[0], raw.numel(),
+                             car.shape[1], 6)},
+        shape=[car.shape[0], chan.n_out], offsets_hz=list(cfg.offsets_hz),
+        table_mb=chan.carrier.numel() * 4 / 1e6)
 
 
 K5_SHAPES = (
@@ -469,9 +546,17 @@ K5_SHAPES = (
     ("d1800_2_channels_1_output_a_thread", "iq", None, 2.4e6, 1800, (-25e3, 25e3), 360_000),
     ("ci2_3_channels", "ci2", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
     ("ci4_d5_1_channel", "ci4", (11e3, 4e3), 250e3, 5, (25e3,), 1_048_575),
-    # Odd decimation and a wire that ends inside a 32-bit word.
+    # K3's 1-bit form (the fragments derived from the table): odd
+    # decimation and a wire that ends inside a 32-bit word; 1, 3, 4 channels.
     ("ci1_d51_partial_last_word", "ci1", None, 2.4e6, 51, (-25e3, 25e3), 400_044),
+    ("ci1_1_channel", "ci1", None, 2.4e6, 50, (-25e3,), 400_000),
+    ("ci1_3_channels", "ci1", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
+    ("ci1_4_channels", "ci1", None, 2.4e6, 50, (-25e3, 25e3, 0.0, 50e3), 400_000),
+    # A geometry the 1-bit form refuses (no periodic carrier): the template's ci1.
+    ("ci1_template_full_table_1_channel", "ci1", None, 2.4e6, 50, (25e3 * math.sqrt(2),), 400_000),
 )
+# K5 as the 250 ksps path launches it (one channel, D = 5) and at D = 1: timed too.
+K5_TIMED_SHAPES = ("d5_1_channel", "d1_1_channel")
 
 
 def phase_k5_shapes(cfg) -> None:
@@ -480,9 +565,11 @@ def phase_k5_shapes(cfg) -> None:
     length table; decimations that leave room for only 1 or 2 outputs a
     thread, and more items than threads) and K3/K4 at some of them, each
     against its plain version: every instantiation the plan can pick is
-    launched and compared."""
+    launched and compared.  The ci1 cases must launch the kernel their
+    geometry asks for: the 1-bit form, or the template where it refuses."""
     import torch
 
+    from ais_tpu_torch import _build
     from ais_tpu_torch.ops.channelizer import (
         Channelizer, freq_xlating_polyphase, freq_xlating_polyphase_plain, kernel_plan,
         rotate_carrier,
@@ -507,25 +594,39 @@ def phase_k5_shapes(cfg) -> None:
         chan = Channelizer(taps, decim, offsets, rate, n_in, device=dev)
         ph = torch.from_numpy(rng.uniform(0, 2 * math.pi, len(offsets)).astype(np.float32)).to(dev)
         car = rotate_carrier(chan.carrier, ph)
+        timed = {}
+        _build.reset_launch_counts()
         if kind == "iq":
             x = torch.complex(torch.randn(n_in, device=dev, generator=gen),
                               torch.randn(n_in, device=dev, generator=gen)) * 0.3
             got = freq_xlating_polyphase(x, car, chan.taps, decim=decim)
             ref = freq_xlating_polyphase_plain(x, car, chan.taps, decim)
+            if name in K5_TIMED_SHAPES:
+                timed = {"ms_back_to_back": cuda_ms_back_to_back(
+                    lambda: freq_xlating_polyphase(x, car, chan.taps, decim=decim), 50),
+                    **channelizer_bound(n_in, chan.n_out, chan.taps.numel(), len(offsets),
+                                        8.0 * n_in, car.shape[1], 6)}
         else:
             raw = torch.randint(0, 256, (n_in // PACKED[kind].samples_per_byte,), device=dev,
                                 dtype=torch.uint8, generator=gen)
             got = wire_channelizer_packed(kind, raw, car, chan.taps, decim=decim, n_in=n_in)
             ref = wire_channelizer_packed_plain(kind, raw, car, chan.taps, decim)
         torch.cuda.synchronize()
+        launched = sorted(k for k, n in _build.launch_counts().items() if n)
         max_err, ok = channelizer_error(got, ref)
         plan = kernel_plan(chan.taps.numel(), decim, len(offsets))
-        seen.add((len(offsets), plan.outputs))
-        log("k5_shapes", case=name, kernel=kind, n_chan=len(offsets), decim=decim,
-            ntaps=chan.taps.numel(), n_in=n_in, n_out=chan.n_out, period=chan.carrier.shape[1],
-            plan=plan._asdict(), tolerance=TOLERANCE, max_abs_err=max_err, within=ok)
+        if launched != ["wire_channelizer_ci1_mma"]:     # the template ran, under this plan
+            seen.add((len(offsets), plan.outputs))
+        log("k5_shapes", case=name, kernel=kind, launched=launched, n_chan=len(offsets),
+            decim=decim, ntaps=chan.taps.numel(), n_in=n_in, n_out=chan.n_out,
+            period=chan.carrier.shape[1], plan=plan._asdict(), tolerance=TOLERANCE,
+            max_abs_err=max_err, within=ok, **timed)
         if got.shape != ref.shape or not ok:
             raise RuntimeError(f"{kind} at {name} disagrees with its plain version: {max_err}")
+        if kind == "ci1":
+            want_kernel = "wire_channelizer_ci1" + ("" if "template" in name else "_mma")
+            if launched != [want_kernel]:
+                raise RuntimeError(f"{name} launched {launched}, not {want_kernel}")
     want = {(1, 8), (2, 8), (3, 4), (4, 4), (4, 1), (2, 1)}
     if not want <= seen:
         raise RuntimeError(f"k5_shapes did not launch every instantiation: {sorted(seen)}")
@@ -775,8 +876,8 @@ def phase_wire_formats(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) ->
     from ais_tpu_torch.scene import content_parity
 
     kernel_of = {"ci16": "channelizer", "ci8": "channelizer", "ci4": "wire_channelizer_ci4",
-                 "ci2": "wire_channelizer_ci2", "ci1": "wire_channelizer_ci1",
-                 "cd1": "wire_channelizer_ci1"}
+                 "ci2": "wire_channelizer_ci2", "ci1": "wire_channelizer_ci1_mma",
+                 "cd1": "wire_channelizer_ci1_mma"}
     scaled = (iq * 0.7).astype(np.complex64)
     rx = WidebandReceiver(cfg, n_in=n_in, device="cuda")
     fresh = rx.get_state()
@@ -817,6 +918,9 @@ def phase_wire_formats(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) ->
         if any(n != 1 for n in launches[fmt].values()):
             raise RuntimeError(f"{fmt}: its channelizer and K2 should launch once a step: "
                                f"{launches[fmt]} in one step")
+        if counts["wire_channelizer_ci1"]:
+            raise RuntimeError(f"{fmt}: the template's ci1 kernel launched at the bench "
+                               f"geometry: {counts}")
         del wire
     torch.cuda.empty_cache()
     return launches
@@ -893,11 +997,10 @@ def phase_k5_full(cfg, n_in: int, row: dict) -> None:
     from ais_tpu_torch.ops.channelizer import (
         Channelizer, freq_xlating_polyphase, freq_xlating_polyphase_plain, rotate_carrier,
     )
-    from ais_tpu_torch.pipeline.radio import ppm_offset_hz
     from ais_tpu_torch.pipeline.wideband import channel_taps
 
     dev = torch.device("cuda")
-    shifted = cfg._replace(offsets_hz=tuple(o + ppm_offset_hz(RADIO_PPM) for o in cfg.offsets_hz))
+    shifted = ppm_shifted(cfg)
     chan = Channelizer(channel_taps(cfg), cfg.decimation, shifted.offsets_hz, cfg.input_rate,
                        n_in, device=dev)
     if not chan.full_table:
@@ -1000,6 +1103,50 @@ def phase_radio_wideband_ppm(card: str, iq: np.ndarray, tx_packets) -> dict:
     return path_launches(launches, ("channelizer", "matched_filter"))
 
 
+def phase_wire_ci1_ppm(card: str, iq: np.ndarray, tx_packets) -> dict:
+    """`decode_wire(raw, "ci1")` of the scene's first 8 blocks as a device
+    50 ppm high records them, on a receiver whose channels carry that
+    correction: the carriers have no period, so K3 runs as the template's
+    ci1 kernel on a full-length table, and the 1-bit form never."""
+    import dataclasses
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops.convert import host_bytes
+    from ais_tpu_torch.pipeline.radio import ppm_offset_hz
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+    from ais_tpu_torch.scene import content_parity
+
+    cfg, n_in = bench_geometry(PPM_WIRE_BLOCKS)
+    cfg = ppm_shifted(cfg)
+    shift = ppm_offset_hz(RADIO_PPM)
+    rx = WidebandReceiver(cfg, n_in=n_in, device="cuda")
+    tx = [dataclasses.replace(p, offset_hz=p.offset_hz + shift) for p in tx_packets
+          if p.start_sample + BURST_SPAN_2P4M < rx.step_raw]
+    wire = host_bytes((shift_capture(iq[: rx.n_in], shift, 2.4e6) * 0.7).astype(np.complex64),
+                      "ci1")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = rx.decode_wire(wire, "ci1")
+    step_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    parity = content_parity(found, tx, cfg.decimation)
+    chan = rx.channelizer_for("ci1")
+    out = {"card": card, "offsets_hz": list(cfg.offsets_hz), "n_in": rx.n_in,
+           "blocks": rx.n_blocks, "table_mb": chan.carrier.numel() * 4 / 1e6,
+           "full_length_table": chan.full_table, "tx_packets": len(tx), "decoded": len(found),
+           "content_parity": parity, "overflow_blocks": rx.overflow_blocks,
+           "launches": launches, "step_ms": step_s * 1e3}
+    log("wire_ci1_ppm", **out)
+    if parity != 1.0 or rx.overflow_blocks:
+        raise RuntimeError(f"ci1 at 50 ppm: parity {parity}, {rx.overflow_blocks} overflows")
+    if not chan.full_table or launches["wire_channelizer_ci1_mma"]:
+        raise RuntimeError(f"ci1 at 50 ppm should run the template on a full table: {launches}")
+    on_path = path_launches(launches, ("wire_channelizer_ci1", "matched_filter"))
+    if any(n != 1 for n in on_path.values()):
+        raise RuntimeError(f"ci1 at 50 ppm: the template and K2 should launch once: {on_path}")
+    return on_path
+
+
 def phase_mlse(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> dict:
     """The complex path at the bench geometry with the coherent MLSE
     decision (threshold 0.4); the decision stage timed apart, against
@@ -1077,7 +1224,7 @@ def phase_mlse(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> dict:
     return path_launches(launches, ("channelizer", "matched_filter"))
 
 
-def phase_overflow(cfg, card: str, iq: np.ndarray, tx_packets) -> dict:
+def phase_overflow(card: str, iq: np.ndarray, tx_packets) -> dict:
     """The cr1 wire path at 8 blocks with a burst table of 3, a third of
     the scene's ~9 bursts a block and channel: every block overflows and
     is re-demodulated on the host side with a larger table."""
@@ -1085,14 +1232,12 @@ def phase_overflow(cfg, card: str, iq: np.ndarray, tx_packets) -> dict:
 
     from ais_tpu_torch import _build
     from ais_tpu_torch.ops.convert import host_bytes
-    from ais_tpu_torch.pipeline.wideband import WidebandReceiver, aligned_n_in, num_taps
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
     from ais_tpu_torch.scene import content_parity
 
-    ocfg = cfg._replace(demod=dataclasses.replace(cfg.demod, max_bursts_per_block=OVERFLOW_K),
-                        compact_lanes=14 * 2 * OVERFLOW_BLOCKS)
-    n48 = ocfg.block_len + ocfg.core_len * (OVERFLOW_BLOCKS - 1)
-    rx = WidebandReceiver(ocfg, n_in=aligned_n_in(ocfg, (n48 - 1) * ocfg.decimation
-                                                  + num_taps(ocfg)), device="cuda")
+    ocfg, n_in = bench_geometry(OVERFLOW_BLOCKS)
+    ocfg = ocfg._replace(demod=dataclasses.replace(ocfg.demod, max_bursts_per_block=OVERFLOW_K))
+    rx = WidebandReceiver(ocfg, n_in=n_in, device="cuda")
     tx = [p for p in tx_packets if p.start_sample + BURST_SPAN_2P4M < rx.step_raw]
     wire = host_bytes((iq[: rx.n_in] * 0.7).astype(np.complex64), "cr1")
     _build.reset_launch_counts()
@@ -1139,7 +1284,9 @@ def phase_radio_channels(card: str) -> dict:
            "decoded": len(found), "content_parity": parity,
            "reference_decoded": len(want), **diff,
            "launches": launches, "wall_s": wall, "realtime_x": n / rate / wall,
-           "msamples_per_s": n / wall / 1e6}
+           "msamples_per_s": n / wall / 1e6,
+           # A step of this path is one 1 << 20-sample chunk: K5 once a channel.
+           "channelizer_launches_per_chunk": launches["channelizer"] / -(-n // (1 << 20))}
     log("radio_channels", **out)
     if diff["only_port"] or diff["only_reference"]:
         raise RuntimeError(f"250 ksps radio: the packets differ from the reference's: {diff}")
@@ -1197,8 +1344,11 @@ def main() -> int:
     cfg, n_in = bench_geometry()
     rows += [phase_k1(cfg, n_in), phase_k2(), *phase_k3_k4_k5(cfg, n_in)]
     phase_k5_full(cfg, n_in, rows[-1])
+    rows.append(phase_k3_template())
     phase_k5_shapes(cfg)
-    fir_only_ms = phase_fir_only(cfg, n_in)
+    # The yardstick at each n_in a channelizer's row was timed at.
+    fir_only_ms = {n: phase_fir_only(cfg, n)
+                   for n in sorted({row["n_in"] for row in rows if "n_in" in row})}
     iq, tx_packets = phase_scene(cfg, n_in)
     card = env["card"]
     main_path = phase_main_path(cfg, n_in, card, iq, tx_packets)
@@ -1209,12 +1359,15 @@ def main() -> int:
     per_step = {k: main_path["launches"][k] / main_path["steps"]
                 for k in ("wire_channelizer_cr1", "matched_filter")}
     per_step["channelizer"] = complex_path["channelizer"]
-    for fmt in ("ci1", "ci2", "ci4"):
+    for fmt in ("ci2", "ci4"):
         per_step[f"wire_channelizer_{fmt}"] = formats[fmt][f"wire_channelizer_{fmt}"]
-    paths = [main_path["launches"], complex_path, *formats.values(),
+    per_step["wire_channelizer_ci1_mma"] = formats["ci1"]["wire_channelizer_ci1_mma"]
+    ci1_ppm = phase_wire_ci1_ppm(card, iq, tx_packets)
+    per_step["wire_channelizer_ci1"] = ci1_ppm["wire_channelizer_ci1"]
+    paths = [main_path["launches"], complex_path, *formats.values(), ci1_ppm,
              phase_radio_wideband_ppm(card, iq, tx_packets),
              phase_mlse(cfg, n_in, card, iq, tx_packets),
-             phase_overflow(cfg, card, iq, tx_packets)]
+             phase_overflow(card, iq, tx_packets)]
     del iq
     paths += [phase_radio_channels(card), phase_ais_rx(card)]
     # Each kernel's launches over the paths that drive it (the probe's
@@ -1224,7 +1377,7 @@ def main() -> int:
             row["launches"] = sum(counts.get(row["name"], 0) for counts in paths)
             row["launches_per_step"] = per_step[row["name"]]
         if "channelizer" in row["name"]:
-            row["library_ms"], row["library_call"] = fir_only_ms, FIR_ONLY
+            row["library_ms"], row["library_call"] = fir_only_ms[row["n_in"]], FIR_ONLY
     if min(row["launches"] for row in rows) <= 0:
         raise RuntimeError(f"a kernel was never launched: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)

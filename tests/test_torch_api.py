@@ -67,6 +67,19 @@ def run(request):
     return dict(rate=rate, iq=iq, tx=tx, want=want, states=states, tails=tails)
 
 
+def test_nmea_pdu_bytes(run):
+    """`DecodedPacket.nmea_pdu` is the sentence as ASCII bytes, equal to
+    the reference's property on the same packet (tests/test_e2e.py)."""
+    rate = run["rate"]
+    rx = tapi.ChannelReceiver(_configs(rate)[0], device="cpu")
+    got = sum((rx.process(p) for p in _chunks(run["iq"])), [])
+    want = run["want"][0]
+    assert got and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.nmea_pdu == g.nmea.encode("ascii") == w.nmea_pdu
+        assert isinstance(g.nmea_pdu, bytes) and g.nmea_pdu.startswith(b"!AIVDM")
+
+
 def test_channel_receivers_match_reference(run):
     rate = run["rate"]
     found = []

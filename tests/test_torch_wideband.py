@@ -221,6 +221,26 @@ def test_state_carries_a_stream_across(run):
     np.testing.assert_array_equal(rx.get_state()["buf"], np.ones(4, np.complex64))
 
 
+def test_last_collect_seconds(run):
+    """`last_collect_s` is (0, 0) before any step and (exec + fetch, host)
+    seconds of the last `collect` after it, as the reference keeps it;
+    `collect_stats` goes on accumulating the same three times."""
+    rx = tw.WidebandReceiver(run["pcfg"], n_in=run["n_in"], device="cpu")
+    assert rx.last_collect_s == (0.0, 0.0)
+    rx.decode_wire(run["wires"][0], "cr1")
+    first = rx.last_collect_s
+    st = dict(rx.collect_stats)
+    assert len(first) == 2 and first[0] >= 0.0 and first[1] > 0.0
+    assert first[0] == pytest.approx(st["exec_s"] + st["fetch_s"])
+    assert first[1] == pytest.approx(st["host_s"])
+    rx.decode_wire(run["wires"][1], "cr1")
+    second, st2 = rx.last_collect_s, rx.collect_stats
+    assert second != first and st2["steps"] == 2
+    assert second[1] == pytest.approx(st2["host_s"] - st["host_s"])
+    assert second[0] == pytest.approx(st2["exec_s"] + st2["fetch_s"] - st["exec_s"] - st["fetch_s"])
+    assert len(run["rrx"].last_collect_s) == 2       # the reference's, after its steps
+
+
 def test_overflow_is_never_silent(run, caplog):
     """A lane directory too small for the step's valid lanes: the blocks
     it dropped are re-demodulated from the step's wire bytes, giving the
