@@ -1,1 +1,2 @@
-"""Command-line entry points of the port (`python -m ais_tpu_torch.cli.ais_rx`)."""
+"""Command-line entry points of the port (`python -m ais_tpu_torch.cli.<name>`):
+`ais_rx`, `ais_scope`, `modem_bench`."""

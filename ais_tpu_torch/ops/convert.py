@@ -19,6 +19,10 @@ On the receiver's path the 1/2/4-bit formats are decoded inside the
 wire channelizer kernels (ops/wire_channelizer.py); the decoders here
 are their plain readings (the kernels' plain versions use them), and
 the ci16/ci8 decode runs ahead of the float channelizer (K5).
+
+`select_wire_format` (host numpy, a copy of the reference's) judges a
+capture against the 1-bit formats' envelope (`wire_format_envelope`):
+outside it the capture rides ci8, near cr1's noise floor ci1.
 """
 
 from __future__ import annotations
@@ -324,3 +328,201 @@ def host_bytes(iq: np.ndarray, fmt: str, *, ci2_dither: float = 0.2,
         q = np.round(np.clip(iq.imag, -1, 1) * 127.5 + 127.5).astype(np.uint8)
         return _interleave(i, q, np.uint8)
     raise ValueError(f"unsupported format {fmt!r}")
+
+
+def wire_format_envelope(
+    iq: np.ndarray,
+    rate: float = 2.4e6,
+    offsets: tuple = (-25e3, +25e3),
+    band_hz: float = 15e3,
+) -> dict:
+    """Capture statistics the 1-bit wire formats' envelopes are judged by.
+
+    Returns:
+      near_far_db — in-band power ratio between the strongest and the
+        weakest ACTIVE channel (0 when fewer than two channels are
+        above the noise floor, so an idle channel never trips the
+        near-far guard).
+      interferer_db — strongest narrowband out-of-band feature vs the
+        strongest in-band feature (smoothed PSD peaks).  A positive
+        value means something outside the AIS channels dominates the
+        capture and will set the peak-referenced sigma-delta scale.
+      channel_snr_db — per channel: peak over chunks of the in-band
+        tone-to-floor ratio, 10*log10(noise-subtracted in-band power /
+        in-band noise power), -99 when the channel never registered
+        activity.  This is the proxy the sensitivity gate judges
+        (select_wire_format): measured against calibrated AWGN scenes
+        (wire_sweep.py part 2's Eb/N0 convention) it tracks
+        Eb/N0 - ~3.9 dB with unit slope over the 10-30 dB decode range
+        (the in-band window integrates ~30 kHz of noise against a
+        9600 bit/s GMSK tone; tests/test_wire_select.py pins the
+        calibration).
+    """
+    # PSDs over chunks spread across the WHOLE buffer, judged PER CHUNK:
+    # AIS traffic is bursty (a packet is ~27 ms), so whole-capture power
+    # integration dilutes a weak burst below the noise floor and a
+    # leading-chunk-only analysis can miss every transmission.  Activity
+    # and channel power are per-chunk peaks (noise-subtracted), so a
+    # single weak burst anywhere in the buffer counts at its in-burst
+    # strength.
+    n = min(int(iq.size), 1 << 17)  # ~55 ms at 2.4 Msps: one burst fits
+    # 75%-overlapped chunks (hop n/4): a ~27 ms burst then sits within
+    # ±n/8 of SOME chunk's center, bounding its Hanning edge loss to
+    # ~1 dB — with the old disjoint chunks a burst straddling a chunk
+    # boundary read up to ~10 dB low and spuriously tripped the
+    # sensitivity gate.  Beyond the 48-chunk cap (captures > ~0.7 s)
+    # chunks spread evenly: the statistics become a sample, which bursty
+    # AIS traffic (one packet per slot per vessel) keeps representative.
+    n_chunks = max(1, min(48, 1 + 4 * (int(iq.size) - n) // n))
+    win = np.hanning(n).astype(np.float32)
+    freqs = np.fft.fftfreq(n, 1.0 / rate)
+    masks = [np.abs(freqs - off) <= band_hz for off in offsets]
+    in_mask = np.zeros(n, bool)
+    for m in masks:
+        in_mask |= m
+    # ~1 kHz smoothing: an interferer is a narrowband feature, not a bin.
+    w = max(int(1e3 / rate * n), 1)
+    kern = np.ones(w) / w
+    tiny = 1e-30
+    ch_peak = [0.0] * len(offsets)
+    ch_active = [False] * len(offsets)
+    ch_dominant = [False] * len(offsets)
+    ch_snr = [-99.0] * len(offsets)
+    interferer_db = -np.inf
+    # A transmission's own spectral skirt lands in the ADJACENT channel
+    # ~40-46 dB down (GMSK BT=0.4 at 2x the channel spacing, plus burst
+    # ramps): in-band power within this bound of a same-chunk stronger
+    # channel is that channel's skirt, not a second transmission, and
+    # must not register as near-far "activity" (a lone strong
+    # transmitter would otherwise force a permanent ci8 fallback).
+    SKIRT_BOUND = 1e-4  # -40 dBc
+    for c in range(n_chunks):
+        start = (int(iq.size) - n) * c // max(n_chunks - 1, 1)
+        x = np.asarray(iq[start : start + n], np.complex64) * win
+        psd = np.abs(np.fft.fft(x)) ** 2
+        floor = float(np.median(psd))  # per-bin noise floor, this chunk
+        p_sub = []
+        for m in masks:
+            nb = int(m.sum())
+            p = float(psd[m].sum())
+            p_sub.append(p - floor * nb if p > 3.0 * floor * nb else 0.0)
+        strongest = max(p_sub)
+        for ci, (p, m) in enumerate(zip(p_sub, masks)):
+            if p > 0.0 and p > SKIRT_BOUND * strongest:
+                ch_active[ci] = True
+                ch_peak[ci] = max(ch_peak[ci], p)
+                if p == strongest:
+                    # Dominant in its own slot's chunk: a genuine
+                    # transmission, however weak globally (AIS is TDMA —
+                    # a far vessel owns its slot while the near one is
+                    # silent).  Exempt from the global skirt post-pass.
+                    ch_dominant[ci] = True
+                nb = int(m.sum())
+                ch_snr[ci] = max(
+                    ch_snr[ci],
+                    10.0 * np.log10(p / max(floor * nb, tiny)),
+                )
+        sm = np.convolve(psd, kern, mode="same")
+        peak_in = float(sm[in_mask].max()) if in_mask.any() else tiny
+        peak_out = float(sm[~in_mask].max()) if (~in_mask).any() else tiny
+        interferer_db = max(
+            interferer_db,
+            10.0 * np.log10(max(peak_out, tiny) / max(peak_in, tiny)),
+        )
+    # Global skirt post-pass: the per-chunk bound compares against that
+    # chunk's strongest channel, but a chunk catching only a burst's
+    # ramp transient sees little of the carrier and lets the ramp's
+    # wideband splatter register the OTHER channel as active (with the
+    # 75%-overlap chunking this happens reliably).  A channel whose
+    # best showing across the whole capture is below -40 dBc of the
+    # strongest channel's best showing AND that was never the dominant
+    # in-band channel of any chunk is skirt/splatter, not a
+    # transmission.  The dominance exemption keeps a genuine far vessel
+    # (own TDMA slot, arbitrarily weak globally) active, so an extreme
+    # near-far capture still takes the ci8 fallback it needs (an
+    # unconditioned post-pass would silently bypass it).
+    strongest_peak = max(ch_peak)
+    for ci, p in enumerate(ch_peak):
+        if (
+            ch_active[ci]
+            and not ch_dominant[ci]
+            and p < SKIRT_BOUND * strongest_peak
+        ):
+            ch_active[ci] = False
+            ch_snr[ci] = -99.0
+    act = [p for p, a in zip(ch_peak, ch_active) if a]
+    near_far_db = (
+        10.0 * np.log10(max(act) / max(min(act), tiny)) if len(act) >= 2 else 0.0
+    )
+    return {
+        "near_far_db": float(near_far_db),
+        "interferer_db": float(interferer_db),
+        "channels_active": ch_active,
+        "channel_snr_db": [float(s) for s in ch_snr],
+    }
+
+
+def select_wire_format(
+    iq: np.ndarray,
+    preferred: str = "cr1",
+    rate: float = 2.4e6,
+    offsets: tuple = (-25e3, +25e3),
+    near_far_limit_db: float = 24.0,
+    interferer_limit_db: float = 6.0,
+    min_snr_db: float = 15.5,
+) -> tuple[str, str]:
+    """Auto-fallback for the 1-bit ingest formats: (format, reason).
+
+    cr1/ci1 buy ingest bandwidth with a peak-referenced 1-bit encode
+    whose measured envelopes are 28/26 dB near-far (tests/
+    test_wideband.py) and "the AIS channels dominate the capture"
+    (the sigma-delta scale is set by the total peak: a strong
+    out-of-band interferer pushes the wanted channels toward the
+    quantization floor).  When the capture's statistics exceed those
+    envelopes — checked per buffer, WIRE.md for the measured bounds —
+    fall back to the linear ci8 wire (full front-end dynamic range at
+    4x the bytes) instead of silently losing weak packets.  The limits
+    sit a few dB inside the tested bounds.
+
+    `min_snr_db` is the AWGN-floor (sensitivity) gate:
+    cr1's packet success falls off below Eb/N0 ~18-20 dB while
+    ci1 matches the float path to ~1 dB (WIRE.md sensitivity table —
+    an envelope the near-far and interferer guards do not check).  When the
+    weakest ACTIVE channel's in-band SNR proxy (channel_snr_db, which
+    tracks Eb/N0 - ~3.9 dB) is below this margin, a cr1 preference
+    falls back to ci1: same 1-bit sigma-delta family at 2x the bytes,
+    float-equivalent sensitivity.  The default 15.5 dB corresponds to
+    Eb/N0 ~19.4 dB — right at cr1's measured >=95%-success floor
+    (20 dB), so captures below the crossover ride ci1.  An idle
+    channel (never active in any chunk) does not trip the gate.
+    """
+    if preferred not in ("cr1", "ci1", "cd1"):
+        return preferred, "linear format: no envelope to check"
+    env = wire_format_envelope(iq, rate=rate, offsets=offsets)
+    if env["interferer_db"] > interferer_limit_db:
+        return (
+            "ci8",
+            f"out-of-band interferer {env['interferer_db']:.1f} dB above "
+            f"the AIS channels (> {interferer_limit_db:.0f} dB limit)",
+        )
+    if env["near_far_db"] > near_far_limit_db:
+        return (
+            "ci8",
+            f"near-far imbalance {env['near_far_db']:.1f} dB "
+            f"(> {near_far_limit_db:.0f} dB limit)",
+        )
+    if preferred == "cr1":
+        act_snr = [
+            s
+            for s, a in zip(env["channel_snr_db"], env["channels_active"])
+            if a
+        ]
+        if act_snr and min(act_snr) < min_snr_db:
+            return (
+                "ci1",
+                f"in-band SNR {min(act_snr):.1f} dB below the cr1 "
+                f"sensitivity margin ({min_snr_db:.1f} dB ~ Eb/N0 "
+                f"{min_snr_db + 3.9:.0f} dB, cr1's measured AWGN floor "
+                f"- WIRE.md): ci1 holds float-path sensitivity",
+            )
+    return preferred, "within envelope"

@@ -2,7 +2,7 @@
 and the one-channel frequency-translating decimator.
 
 Port of `ais_tpu/ops/fir.py`: `mixer_phase`, `_mixer_carrier`, the
-contraction formulation of `_fir_polyphase_einsum`, and
+contraction formulation of `_fir_polyphase_einsum`, `fir_filter`, and
 `freq_xlating_fir_decimate`, which runs on K5 (`ops/channelizer.py`).
 """
 
@@ -45,6 +45,27 @@ def fir_polyphase(x: torch.Tensor, taps: torch.Tensor, decim: int) -> torch.Tens
     for p in range(1, p_rows):
         y += Z[..., p : p + n_out, p]
     return y
+
+
+def fir_filter(x: torch.Tensor, taps, decim: int = 1) -> torch.Tensor:
+    """Strided VALID FIR of complex input with real taps.
+
+    x: (..., n) complex64; returns (..., (n - ntaps)//decim + 1) with
+    y[j] = sum_k taps[k] * x[j*decim + k] (correlation orientation).  A
+    decimating filter runs as the polyphase contraction, a non-decimating
+    one as one `conv1d` over the real and imaginary planes (full fp32:
+    the package keeps TF32 off)."""
+    if not isinstance(taps, torch.Tensor):
+        taps = torch.from_numpy(np.asarray(taps, np.float32))
+    taps_t = taps.to(device=x.device, dtype=torch.float32)
+    planes =torch.view_as_real(x.to(torch.complex64)).movedim(-1, -2)   # (..., 2, n)
+    if decim > 1:
+        y = fir_polyphase(planes, taps_t, decim)
+    else:
+        lead, n = planes.shape[:-1], planes.shape[-1]
+        y = torch.nn.functional.conv1d(planes.reshape(-1, 1, n), taps_t.reshape(1, 1, -1))
+        y = y.reshape(*lead, -1)
+    return torch.complex(y[..., 0, :], y[..., 1, :])
 
 
 def mixer_carrier(offset_hz: float, sample_rate: float, length: int) -> np.ndarray:

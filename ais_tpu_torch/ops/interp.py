@@ -35,3 +35,23 @@ def interp_taps(ntaps: int = NTAPS, nsteps: int = NSTEPS) -> np.ndarray:
         h = h * w
         rows.append(h / h.sum())  # unity DC gain
     return np.asarray(rows, dtype=np.float32)
+
+
+def interpolate(x, index, mu, bank=None, tap_index=None):
+    """Value of each row of `x` at fractional position index + DELAY + mu.
+
+    x: (N, L) complex64; index: (N,) int64 first sample of the 8 read;
+    mu: (N,) float32 in [0, 1]; bank: the (129, 8) float32 bank on x's
+    device (built from `interp_taps` when not given); tap_index:
+    arange(8) on x's device, for a caller that interpolates in a loop.
+    Returns (N,) complex64: the row of the bank nearest mu (round half
+    to even, as the reference) dotted with x[n, index[n] : index[n] + 8]."""
+    import torch
+
+    if bank is None:
+        bank = torch.from_numpy(interp_taps()).to(x.device)
+    if tap_index is None:
+        tap_index = torch.arange(NTAPS, device=x.device)
+    imu = torch.clamp(torch.round(mu * NSTEPS).to(torch.int64), 0, NSTEPS)
+    frames = x.gather(-1, index.to(torch.int64)[:, None] + tap_index[None, :])
+    return (frames * bank[imu]).sum(-1)

@@ -1,13 +1,15 @@
 """Batched AIS burst demodulator: demod blocks -> per-burst bit records.
 
 `BurstDemod` ports `ais_tpu/pipeline/receiver.py:make_burst_demod` with
-`timing_mode="feedforward"` and either bit decision of `demod_mode`.  One
-call maps a (B, block_len) batch of halo'd blocks to a fixed-size table
-of K burst records per block:
+both timing recoveries of `timing_mode` and either bit decision of
+`demod_mode`; `make_debug_taps` ports the scopes' intermediate signals.
+One call maps a (B, block_len) batch of halo'd blocks to a fixed-size
+table of K burst records per block:
 
   AGC -> square-and-FFT AFC -> matched filter (K2) -> threshold/CFAR/NMS
   detection -> burst windows (a gather) -> RSSI, per-burst derotation ->
-    "discriminator": feedforward timing + symbol FIR -> quadrature demod
+    "discriminator": symbols by feedforward timing (`ff_path`: FIR comb,
+            FFT comb or bank) or by the PLL loop -> quadrature demod
     "mlse": fine carrier (refine_freq) -> derotation -> tone-phase
             timing -> interval frames -> Viterbi over the GMSK trellis
   -> slice/diff/invert
@@ -33,8 +35,9 @@ from ais_tpu_torch.ops.interp import NSTEPS, NTAPS
 from ais_tpu_torch.ops.matched_filter import MatchedFilter
 from ais_tpu_torch.sync.corr import autocorr_threshold, detect_bursts
 from ais_tpu_torch.sync.feedforward import (
+    FF_PATHS,
     estimate_timing,
-    feedforward_symbols_fir,
+    feedforward_symbols,
     refine_freq,
 )
 from ais_tpu_torch.sync.mlse import (
@@ -43,6 +46,7 @@ from ais_tpu_torch.sync.mlse import (
     mlse_levels,
     trellis_tensors,
 )
+from ais_tpu_torch.sync.timing import msk_timing_recovery
 
 
 class BurstRecords(NamedTuple):
@@ -94,14 +98,12 @@ def demod_constants(cfg: DemodConfig) -> tuple[np.ndarray, np.ndarray, float]:
 def _check_modes(cfg: DemodConfig) -> None:
     if cfg.demod_mode not in ("discriminator", "mlse"):
         raise ValueError(f"unknown demod_mode {cfg.demod_mode!r}")
-    if cfg.timing_mode != "feedforward":
-        raise NotImplementedError(
-            f"timing_mode={cfg.timing_mode!r} is not ported yet (ROADMAP A.11)")
-    # "auto" resolves to the one formulation the port has; the reference's
-    # CPU choice ("bank") is a different algorithm, not a device choice.
-    if cfg.ff_path not in ("auto", "fir"):
-        raise NotImplementedError(
-            f"ff_path={cfg.ff_path!r} is not ported yet (ROADMAP A.11)")
+    if cfg.timing_mode not in ("feedforward", "pll"):
+        raise ValueError(f"unknown timing_mode {cfg.timing_mode!r}")
+    # "auto" is the FIR comb on every device; the reference's CPU choice
+    # ("bank") is a different algorithm, not a device choice.
+    if cfg.ff_path not in FF_PATHS:
+        raise ValueError(f"unknown ff_path {cfg.ff_path!r}")
     if cfg.corr_path not in ("auto", "pallas"):
         raise NotImplementedError(
             f"corr_path={cfg.corr_path!r}: the port's correlator is the matched "
@@ -153,7 +155,7 @@ class BurstDemod(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> BurstRecords:
         front = self.front(x)
-        bits, sym_valid = self.decide(front.bursts, front.offsets)
+        bits, sym_valid = self.decide(front.bursts, front.offsets, front.det.center)
         B, K = front.det.position.shape
         det = front.det
         return BurstRecords(
@@ -211,14 +213,24 @@ class BurstDemod(torch.nn.Module):
         offsets = (starts - win_idx * grid).reshape(B * K)                # in [0, grid)
         return DemodFront(det, est, bursts, offsets, (win_idx * grid).to(torch.int32), rssi)
 
-    def decide(self, bursts: torch.Tensor, offsets: torch.Tensor):
+    def decide(self, bursts: torch.Tensor, offsets: torch.Tensor, centers: torch.Tensor):
         """(N, win_len) derotated bursts -> (bits uint8, valid bool), each
-        (N, n_sym), by the configured demod_mode."""
+        (N, n_sym), by the configured demod_mode and timing_mode.
+        `offsets` (N,): each preamble's start in its window; `centers`
+        (any shape of N): the detections' fractional peak offsets, the
+        PLL's seed."""
         cfg = self.cfg
         if self.trellis is None:
-            symbols, sym_valid = feedforward_symbols_fir(
-                bursts, cfg.samples_per_symbol, self.n_sym, self.ff_delta,
-                self.interp_bank, seg_len=cfg.ff_seg_len)
+            if cfg.timing_mode == "feedforward":
+                symbols, sym_valid = feedforward_symbols(
+                    bursts, cfg.samples_per_symbol, self.n_sym, self.ff_delta,
+                    self.interp_bank, seg_len=cfg.ff_seg_len, path=cfg.ff_path)
+            else:  # pll
+                tr = msk_timing_recovery(
+                    bursts, centers.reshape(-1), cfg.samples_per_symbol, cfg.clockrec_gain,
+                    cfg.omega_relative_limit, self.n_sym, start_index=offsets + 1,
+                    bank=self.interp_bank)
+                symbols, sym_valid = tr.symbols, tr.valid
             return slice_diff_invert(quadrature_demod(symbols)), sym_valid
         # Coherent path: per-burst fine carrier, tone-phase timing,
         # interval framing, trellis decode anchored on the training
@@ -235,6 +247,38 @@ class BurstDemod(torch.nn.Module):
         ts = (offsets.to(torch.float32) / sps).to(torch.int32) + 2
         levels = mlse_levels(frames, self.trellis_t, train_start=ts)
         return slice_diff_invert(levels), sym_valid
+
+
+    def debug_taps(self, x: torch.Tensor) -> dict:
+        """Intermediate signals of one (block_len,) block or a (B,
+        block_len) batch, for scopes and debugging: the AGC output, the
+        AFC-corrected stream, the AFC estimate per chunk in Hz, and the
+        correlator's |corr|^2 (the matched filter's fused output)."""
+        cfg = self.cfg
+        single = x.ndim == 1
+        xb = x[None] if single else x
+        a = feedforward_agc(xb, cfg.agc_window, cfg.agc_reference)
+        y_det, est = square_and_fft_sync(a, cfg.sample_rate, cfg.bit_rate, cfg.fftlen,
+                                         gate_ratio=cfg.afc_gate_ratio)
+        _, mag2 = self.matched_filter(y_det)
+        taps = {"agc": a, "derotated": y_det, "freq_est_hz": est, "corr_mag2": mag2}
+        return {k: v[0] for k, v in taps.items()} if single else taps
+
+
+def make_debug_taps(cfg: DemodConfig, block_len: int, *, device="cuda"):
+    """Intermediate-signal taps for scopes and debugging: a function from
+    a (block_len,) block (numpy or tensor; moved to `device`) to a dict
+    of named tensors on `device` (`BurstDemod.debug_taps`)."""
+    if block_len % cfg.fftlen != 0:
+        raise ValueError(f"block_len {block_len} not a multiple of fftlen {cfg.fftlen}")
+    pre, bank, delta = demod_constants(cfg)
+    demod = BurstDemod(cfg, block_len, block_len - required_halo(cfg), preamble=pre,
+                       interp_bank=bank, ff_delta=delta, device=device)
+
+    def taps(x) -> dict:
+        return demod.debug_taps(torch.as_tensor(x, dtype=torch.complex64).to(demod.interp_bank.device))
+
+    return taps
 
 
 class DemodFront(NamedTuple):

@@ -1,1 +1,1 @@
-"""Burst synchronization: detection and feedforward timing."""
+"""Burst synchronization: detection, feedforward and PLL timing, MLSE."""

@@ -1,14 +1,17 @@
 """Feedforward burst timing from the MSK tone pair, batched over bursts.
 
 Port of `ais_tpu/sync/feedforward.py` (`_calibrate`, `refine_freq`,
-`estimate_timing`, `feedforward_symbols_fir`).  Squaring an MSK/GMSK burst gives tones at
+`estimate_timing`, and the three symbol extractions behind
+`feedforward_symbols`: the FIR comb, the FFT comb and the
+drift-tracking bank interpolation).  Squaring an MSK/GMSK burst gives tones at
 +-Rs/2 whose phases encode the symbol clock: per segment,
 psi = arg(C+ conj(C-)) = psi0 - 2 pi tau / T, so two correlations per
 segment locate the symbol centres, a weighted line across segments
-tracks clock drift, and symbols come out of one 8-tap interpolation at
-a single fractional delay per burst.  The tone-phase-to-position
-offset `delta` is calibrated once, in numpy, against the reference
-package's own modulator.
+tracks clock drift, and symbols come out of one 8-tap interpolation:
+at a single fractional delay per burst (the two combs, integer sps
+only) or at each symbol's own position on the drift line (the bank,
+any sps).  The tone-phase-to-position offset `delta` is calibrated
+once, in numpy, against the package's own modulator.
 """
 
 from __future__ import annotations
@@ -168,12 +171,89 @@ def feedforward_symbols_fir(bursts: torch.Tensor, sps: float, n_symbols: int,
     return symbols, valid
 
 
-def ff_delta(sps: float, bt: float) -> float:
-    """The calibrated tone-phase offset for integer `sps`."""
-    if abs(sps - round(sps)) > 1e-9:
-        raise NotImplementedError(
-            f"feedforward timing at non-integer sps {sps} needs the bank "
-            f"interpolation path (ROADMAP A.11)"
-        )
-    return _calibrate(int(round(sps)), bt)
+def feedforward_symbols_fft(bursts: torch.Tensor, sps: float, n_symbols: int,
+                            delta: float, seg_len: int = 256,
+                            min_weight_frac: float = 0.25):
+    """Symbols by an FFT fractional delay and a strided comb, for (N, L)
+    bursts: each burst is delayed by its fractional timing offset in the
+    frequency domain (ideal sinc interpolation, one batched FFT / IFFT of
+    size 1 << (L - 1).bit_length()), and the symbols are read at
+    delayed[R + sps*k].  Integer sps, negligible drift across a burst.
+    Returns (symbols complex64 (N, n_symbols), valid bool (N, n_symbols)).
+    """
+    length = bursts.shape[-1]
+    sps_i = int(round(sps))
+    base, intercept, _ = estimate_timing(bursts, sps, delta, seg_len, min_weight_frac)
+    # Clamped into the comb range as the FIR comb's: a wild estimate
+    # degrades to a CRC failure, never a silent zero burst.
+    r0 = DELAY
+    n_cand = sps_i + 2
+    tau = torch.clamp(base + intercept, float(r0), float(r0 + n_cand) - 1e-3)
+    R = torch.floor(tau).to(torch.int32)
+    mu = tau - R.to(torch.float32)
+    nfft = 1 << (length - 1).bit_length()
+    F = torch.fft.fft(bursts, nfft)
+    kf = torch.from_numpy(np.fft.fftfreq(nfft).astype(np.float32)).to(bursts.device) * nfft
+    ph = (2.0 * np.pi / nfft) * kf[None, :] * mu[:, None]
+    delayed = torch.fft.ifft(F * torch.polar(torch.ones_like(ph), ph))[:, :length]
+    at = R.to(torch.int64)[:, None] + sps_i * torch.arange(
+        n_symbols, device=bursts.device)[None, :]
+    symbols = delayed.gather(-1, at)
+    kpos = R.to(torch.float32)[:, None] + torch.arange(
+        n_symbols, device=bursts.device, dtype=torch.float32) * sps_i
+    valid = (kpos >= 0) & (kpos + sps_i + 8 <= length)
+    return symbols.to(torch.complex64), valid
 
+
+def feedforward_symbols_bank(bursts: torch.Tensor, sps: float, n_symbols: int,
+                             delta: float, bank: torch.Tensor, seg_len: int = 256,
+                             min_weight_frac: float = 0.25):
+    """Symbols by bank interpolation at every symbol's own position on
+    the drift line, for (N, L) bursts: pos_k = base + k*sps, corrected by
+    intercept + slope*pos_k; 8 samples gathered at floor(pos_k) - DELAY
+    and dotted with the bank row nearest the fraction.  Tracks clock
+    drift and serves any sps, integer or not."""
+    length = bursts.shape[-1]
+    base, intercept, slope = estimate_timing(bursts, sps, delta, seg_len, min_weight_frac)
+    k = torch.arange(n_symbols, dtype=torch.float32, device=bursts.device)
+    pos = base[:, None] + k[None, :] * sps
+    pos = pos + intercept[:, None] + slope[:, None] * pos
+    i0 = torch.floor(pos).to(torch.int32)
+    mu = pos - i0
+    valid = (i0 - DELAY >= 0) & (i0 - DELAY + NTAPS <= length)
+    i0c = (i0 - DELAY).clamp(0, length - NTAPS).to(torch.int64)
+    rows = bank[torch.clamp(torch.round(mu * NSTEPS).to(torch.int64), 0, NSTEPS)]
+    symbols = torch.zeros(bursts.shape[0], n_symbols, dtype=bursts.dtype, device=bursts.device)
+    for t in range(NTAPS):
+        symbols += rows[..., t] * bursts.gather(-1, i0c + t)
+    return symbols, valid
+
+
+FF_PATHS = ("auto", "fir", "fft", "bank")
+
+
+def feedforward_symbols(bursts: torch.Tensor, sps: float, n_symbols: int, delta: float,
+                        bank: torch.Tensor, seg_len: int = 256,
+                        min_weight_frac: float = 0.25, path: str = "auto"):
+    """Recover `n_symbols` symbol-rate samples from each (N, L) burst.
+
+    Returns (symbols complex64 (N, n_symbols), valid bool (N, n_symbols)).
+    `path`: "auto" and "fir" are the FIR comb, "fft" the transform-domain
+    comb, "bank" the drift-tracking interpolation; at a non-integer sps
+    every path is the bank, the only one that serves it."""
+    if path not in FF_PATHS:
+        raise ValueError(f"unknown ff_path {path!r}")
+    if path != "bank" and abs(sps - round(sps)) < 1e-9:
+        if path == "fft":
+            return feedforward_symbols_fft(bursts, sps, n_symbols, delta, seg_len,
+                                           min_weight_frac)
+        return feedforward_symbols_fir(bursts, sps, n_symbols, delta, bank, seg_len,
+                                       min_weight_frac)
+    return feedforward_symbols_bank(bursts, sps, n_symbols, delta, bank, seg_len,
+                                    min_weight_frac)
+
+
+def ff_delta(sps: float, bt: float) -> float:
+    """The calibrated tone-phase offset for `sps`: calibrated at the
+    nearest whole number of samples a symbol, as the reference does."""
+    return _calibrate(int(round(sps)), bt)

@@ -1,1 +1,1 @@
-"""Bit and CPM helpers (numpy)."""
+"""Bit and CPM helpers (numpy); profiling helpers."""

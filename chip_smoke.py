@@ -57,7 +57,27 @@ overflow recovery, the CLI), in phases, one result line each:
      demod) over a 250 ksps full-load scene of 21 s; its packets must be
      the JAX reference's (`tests/test_torch_reference_packets.json`);
  12. ais_rx: `python -m ais_tpu_torch.cli.ais_rx` on a 250 ksps cf32
-     capture must print the golden sentence.
+     capture must print the golden sentence;
+ 13. pll, ff_fft, ff_bank: the cr1 main path at the bench geometry with
+     `timing_mode="pll"`, `ff_path="fft"` and `ff_path="bank"`: a warm-up
+     decode and one timed step each, the decision stage timed against the
+     FIR comb's on the same bursts.  pll's packets must be the JAX
+     reference's (`pll_bench` of the reference packets file; at most 2
+     may differ either way, and parity may not fall below the
+     reference's); fft and bank must reach parity 1.0;
+ 14. wire_select: `select_wire_format(iq, "cr1")` on the scene and on the
+     scene under a +500 kHz carrier at 10x a packet's amplitude must give
+     the reference's format and reason (`wire_select_bench` of the same
+     file; the second must be ci8 for an interferer); each chosen format
+     then decodes 8 blocks of its capture with parity 1.0;
+ 15. debug_taps: `make_debug_taps` on one 16384-sample block: one K2
+     launch, `corr_mag2` against the plain version;
+ 16. modem_bench: `python -m ais_tpu_torch.cli.modem_bench` in a child
+     process, the three chains at a clean and a noisy point: every clean
+     trial must decode in each chain;
+ 17. ais_scope: `compute_panels` on the golden 250 ksps capture: the
+     correlator peak inside the packet's span, the threshold equal to
+     `autocorr_threshold`'s; the PNG only where matplotlib is installed.
 
 Each path runs with every launch count set to 0 just before it and
 reads them just after: each kernel of the path must have launched, and
@@ -90,6 +110,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -109,8 +130,16 @@ WIRE_FORMATS = ("ci16", "ci8", "ci4", "ci2", "ci1", "cd1")
 RADIO_PPM = 50.0           # LO error of the ppm radio phase
 OVERFLOW_BLOCKS, OVERFLOW_K = 8, 3
 PPM_WIRE_BLOCKS = 8        # blocks a step of the wire_ci1_ppm path
+# The other timing formulations on the cr1 main path: phase -> DemodConfig fields.
+TIMING_MODES = {"pll": {"timing_mode": "pll"}, "ff_fft": {"ff_path": "fft"},
+                "ff_bank": {"ff_path": "bank"}}
+PLL_MAY_DIFFER = 2         # packets the pll phase may differ from the reference's, either way
 CHANNELS_RATE, CHANNELS_SECONDS = 250e3, 21.0
 BURST_SPAN_2P4M = 64500    # the scene's packet span at 2.4 Msps
+# The out-of-band carrier of the wire_select phase: +500 kHz, at 10x the
+# amplitude of a packet of the scene (whose packets have amplitude 1).
+INTERFERER_HZ, INTERFERER_GAIN = 500e3, 10.0
+WIRE_SELECT_BLOCKS = 8     # blocks a step of the wire_select decodes
 REPO = Path(__file__).resolve().parent
 # The JAX reference's packets on the mlse and radio_channels scenes,
 # where it does not decode the whole content either (ROADMAP C):
@@ -136,6 +165,19 @@ def packet_diff(found, want: list) -> dict:
     got = {tuple(k) for k in packet_keys(found)}
     ref = {tuple(k) for k in want}
     return {"only_port": sorted(got - ref), "only_reference": sorted(ref - got)}
+
+
+def with_interferer(iq: np.ndarray, rate: float = 2.4e6) -> np.ndarray:
+    """The capture plus a carrier at INTERFERER_HZ of amplitude
+    INTERFERER_GAIN (float64 phase, in pieces)."""
+    out = np.empty_like(iq)
+    step = 1 << 22
+    for i in range(0, iq.size, step):
+        n = np.arange(i, min(i + step, iq.size), dtype=np.float64)
+        ph = 2.0 * np.pi * np.remainder(INTERFERER_HZ / rate * n, 1.0)
+        out[i: i + n.size] = iq[i: i + n.size] + (INTERFERER_GAIN * np.exp(1j * ph)).astype(
+            np.complex64)
+    return out
 
 
 def bench_geometry(blocks: int = N_BLOCKS):
@@ -602,10 +644,18 @@ def phase_k5_shapes(cfg) -> None:
             got = freq_xlating_polyphase(x, car, chan.taps, decim=decim)
             ref = freq_xlating_polyphase_plain(x, car, chan.taps, decim)
             if name in K5_TIMED_SHAPES:
+                planes = torch.view_as_real(x).T.contiguous()[None]        # (1, 2, n_in)
+                weight = chan.taps.expand(2, 1, -1).contiguous()
                 timed = {"ms_back_to_back": cuda_ms_back_to_back(
                     lambda: freq_xlating_polyphase(x, car, chan.taps, decim=decim), 50),
+                    "plain_ms": cuda_ms(
+                        lambda: freq_xlating_polyphase_plain(x, car, chan.taps, decim), 20),
+                    "library_ms": cuda_ms(lambda: torch.nn.functional.conv1d(
+                        planes, weight, stride=decim, groups=2), 20),
+                    "library_call": FIR_ONLY,
                     **channelizer_bound(n_in, chan.n_out, chan.taps.numel(), len(offsets),
                                         8.0 * n_in, car.shape[1], 6)}
+                del planes
         else:
             raw = torch.randint(0, 256, (n_in // PACKED[kind].samples_per_byte,), device=dev,
                                 dtype=torch.uint8, generator=gen)
@@ -777,6 +827,7 @@ def phase_main_path(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> di
     if min(n_found) != max(n_found) or n_found[0] < len(tx_packets):
         raise RuntimeError(f"timed steps decoded {n_found} packets")
     log("stages", card=card, **stage_breakdown(rx, wire))
+    out["wire"] = wire
     return out
 
 
@@ -1196,9 +1247,9 @@ def phase_mlse(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> dict:
         ev[0].record()
         front = rx.demod.front(blocks)
         ev[1].record()
-        rx.demod.decide(front.bursts, front.offsets)
+        rx.demod.decide(front.bursts, front.offsets, front.det.center)
         ev[2].record()
-        disc.decide(front.bursts, front.offsets)
+        disc.decide(front.bursts, front.offsets, front.det.center)
         ev[3].record()
         ev[3].synchronize()
         runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
@@ -1323,6 +1374,252 @@ def phase_ais_rx(card: str) -> dict:
     return path_launches(launches, ("channelizer", "matched_filter"))
 
 
+def phase_timing_mode(phase: str, cfg, n_in: int, card: str, wire: np.ndarray,
+                      tx_packets) -> dict:
+    """The cr1 main path at the bench geometry with another timing
+    formulation (TIMING_MODES[phase]): a warm-up decode, one timed step,
+    then the decision stage timed against the FIR comb's on the same
+    bursts.  "pll" is held to the JAX reference's packets on this scene;
+    the feedforward formulations to content parity 1.0."""
+    import dataclasses
+
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.pipeline.receiver import BurstDemod
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+    from ais_tpu_torch.scene import content_parity
+
+    tcfg = cfg._replace(demod=dataclasses.replace(cfg.demod, **TIMING_MODES[phase]))
+    rx = WidebandReceiver(tcfg, n_in=n_in, device="cuda")
+    fresh = rx.get_state()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = rx.decode_wire(wire, "cr1")
+    warm_s = time.perf_counter() - t0
+    rx.set_state(fresh)
+    t0 = time.perf_counter()
+    n_again = len(rx.decode_wire(wire, "cr1"))
+    step_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    parity = content_parity(found, tx_packets, cfg.decimation)
+
+    # The decision stage alone, on one step's bursts: this formulation's
+    # and the FIR comb's, between event pairs.
+    raw, ph, _, _, _ = rx.stage_wire(wire, "cr1", pos=0)
+    chans = rx.wire_channels(raw, ph, "cr1")
+    blocks = chans.unfold(-1, cfg.block_len, rx.core_len)[:, : rx.n_blocks].reshape(
+        rx.n_chan * rx.n_blocks, cfg.block_len)
+    c = rx.constants
+    comb = BurstDemod(dataclasses.replace(rx.demod_cfg, timing_mode="feedforward", ff_path="fir"),
+                      cfg.block_len, rx.core_len, preamble=c.preamble,
+                      interp_bank=c.interp_bank, ff_delta=c.ff_delta, device="cuda")
+    front = rx.demod.front(blocks)
+    runs = []
+    for _ in range(PATH_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        rx.demod.decide(front.bursts, front.offsets, front.det.center)
+        ev[1].record()
+        comb.decide(front.bursts, front.offsets, front.det.center)
+        ev[2].record()
+        ev[2].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(2)])
+    decide_ms, comb_ms = (statistics.median(col) for col in zip(*runs))
+    n_bursts = front.bursts.shape[0]
+    del front, blocks, chans, raw
+    torch.cuda.empty_cache()
+
+    out = {"card": card, "demod": TIMING_MODES[phase], "n_in": rx.n_in, "blocks": rx.n_blocks,
+           "bursts_per_call": n_bursts, "tx_packets": len(tx_packets), "decoded": len(found),
+           "decoded_again": n_again, "content_parity": parity,
+           "overflow_blocks": rx.overflow_blocks, "launches": launches,
+           "warmup_ms": warm_s * 1e3, "step_ms": step_s * 1e3,
+           f"{phase}_decide_ms": decide_ms, "feedforward_decide_ms": comb_ms}
+    if phase == "pll":
+        want = reference_packets("pll_bench")
+        diff = packet_diff(found, want)
+        ref_parity = content_parity(
+            [types.SimpleNamespace(designator=d, abs_sample=a, payload=bytes.fromhex(h))
+             for d, a, h in want], tx_packets, cfg.decimation)
+        out.update(reference_decoded=len(want), reference_parity=ref_parity, **diff)
+    log(phase, **out)
+    if rx.overflow_blocks or n_again != len(found):
+        raise RuntimeError(f"{phase}: {rx.overflow_blocks} blocks overflowed; decoded "
+                           f"{len(found)} then {n_again}")
+    if phase == "pll":
+        if max(len(diff["only_port"]), len(diff["only_reference"])) > PLL_MAY_DIFFER \
+                or parity < ref_parity:
+            raise RuntimeError(f"pll: parity {parity} (reference {ref_parity}); the packets "
+                               f"differ from the reference's: {diff}")
+    elif parity != 1.0:
+        raise RuntimeError(f"{phase}: content parity {parity} != 1.0")
+    on_path = path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+    if any(n != 2 for n in on_path.values()):
+        raise RuntimeError(f"{phase}: K1 and K2 should launch once a step: {on_path} in 2 steps")
+    return on_path
+
+
+def phase_wire_select(card: str, iq: np.ndarray, tx_packets) -> list:
+    """`select_wire_format(iq, "cr1")` on the scene and on the scene under
+    an out-of-band carrier: each answer must be the JAX reference's on the
+    same capture, and the format it names must then decode its capture's
+    first WIRE_SELECT_BLOCKS blocks with parity 1.0.  Returns the launch
+    counts of the two decodes."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.ops.convert import host_bytes, select_wire_format
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+    from ais_tpu_torch.scene import content_parity
+
+    want = reference_packets("wire_select_bench")
+    kernel_of = {"cr1": "wire_channelizer_cr1", "ci8": "channelizer"}
+    cfg, n_in = bench_geometry(WIRE_SELECT_BLOCKS)
+    paths = []
+    for case in ("scene", "interferer"):
+        capture = iq if case == "scene" else with_interferer(iq)
+        t0 = time.perf_counter()
+        fmt, reason = select_wire_format(capture, "cr1")
+        select_ms = (time.perf_counter() - t0) * 1e3
+        rx = WidebandReceiver(cfg, n_in=n_in, device="cuda")
+        tx = [p for p in tx_packets if p.start_sample + BURST_SPAN_2P4M < rx.step_raw]
+        # Into the format's grid, as a front end's gain control would:
+        # the main path's 0.7, or the carrier's peak to 0.9.
+        head = capture[: rx.n_in]
+        scale = 0.7 if case == "scene" else 0.9 / float(np.abs(head).max())
+        wire = host_bytes((head * scale).astype(np.complex64), fmt)
+        _build.reset_launch_counts()
+        found = rx.decode_wire(wire, fmt)
+        launches = _build.launch_counts()
+        parity = content_parity(found, tx, cfg.decimation)
+        log("wire_select", card=card, case=case, samples=int(capture.size), format=fmt,
+            reason=reason, reference=want[case], wire_select_ms=select_ms, blocks=rx.n_blocks,
+            wire_mb=wire.nbytes / 1e6, tx_packets=len(tx), decoded=len(found),
+            content_parity=parity, overflow_blocks=rx.overflow_blocks, launches=launches)
+        if [fmt, reason] != want[case]:
+            raise RuntimeError(f"wire_select ({case}): {[fmt, reason]}, the reference gives "
+                               f"{want[case]}")
+        if case == "interferer" and (fmt != "ci8" or "interferer" not in reason):
+            raise RuntimeError(f"wire_select: the interferer scene chose {fmt}: {reason}")
+        if parity != 1.0 or rx.overflow_blocks:
+            raise RuntimeError(f"wire_select ({case}, {fmt}): parity {parity}, "
+                               f"{rx.overflow_blocks} overflows")
+        paths.append(path_launches(launches, (kernel_of[fmt], "matched_filter")))
+        del capture, head
+    return paths
+
+
+def phase_debug_taps(card: str) -> dict:
+    """`make_debug_taps` on one 16384-sample channel-rate block holding the
+    golden packet: K2 launches once, and `corr_mag2` is the plain
+    version's |corr|^2 of the same derotated block within K2's tolerance
+    (corr atol 2e-4, so |mag2 - plain| <= 4e-4 |corr| + 4e-8)."""
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.core.params import DemodConfig
+    from ais_tpu_torch.ops.matched_filter import MatchedFilter, matched_filter_plain
+    from ais_tpu_torch.pipeline.receiver import make_debug_taps, preamble_waveform
+    from ais_tpu_torch.scene import BASE_PAYLOAD
+    from ais_tpu_torch.tx import aivdm_payload_to_bytes, make_packet_iq
+
+    cfg, block_len, at = DemodConfig(), 16384, 5000
+    rng = np.random.default_rng(SEED)
+    x = ((rng.normal(size=block_len) + 1j * rng.normal(size=block_len)) * 0.02)
+    burst = make_packet_iq(aivdm_payload_to_bytes(BASE_PAYLOAD), 5)
+    x[at: at + burst.size] += burst
+    taps_fn = make_debug_taps(cfg, block_len, device="cuda")
+    _build.reset_launch_counts()
+    taps = taps_fn(x.astype(np.complex64))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    mf = MatchedFilter(preamble_waveform(cfg).astype(np.complex64), device="cuda")
+    plain, _ = matched_filter_plain(taps["derotated"][None], mf.taps_conj)
+    plain_mag2 = (plain.real ** 2 + plain.imag ** 2)[0]
+    err = (taps["corr_mag2"] - plain_mag2).abs()
+    within = bool((err <= 4e-4 * plain_mag2.sqrt() + 4e-8).all())
+    peak = int(taps["corr_mag2"].argmax())
+    out = {"card": card, "block_len": block_len, "packet_at": at, "peak": peak,
+           "shapes": {k: list(v.shape) for k, v in taps.items()},
+           "devices": sorted({str(v.device) for v in taps.values()}),
+           "tolerance": "|mag2 - plain| <= 4e-4*|corr| + 4e-8", "max_abs_err": float(err.max()),
+           "within": within, "launches": launches}
+    log("debug_taps", **out)
+    if launches["matched_filter"] != 1 or not within or abs(peak - at) > 64:
+        raise RuntimeError(f"debug_taps: K2 launched {launches['matched_filter']} times, "
+                           f"within tolerance: {within}, peak {peak} for a packet at {at}")
+    return path_launches(launches, ("matched_filter",))
+
+
+def phase_modem_bench(card: str) -> dict:
+    """The loopback modem bench: one trial in this process (launch
+    counts), then `python -m ais_tpu_torch.cli.modem_bench` in a child on
+    the card: the three chains at a clean point (20 dB) and a noisy one
+    (9 dB).  Every clean trial must decode in each chain."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.cli import modem_bench
+
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        modem_bench.main(["--demod", "pll", "--snr-db", "20", "--trials", "1", "--json"])
+    launches = _build.launch_counts()
+    argv = ["--demod", "all", "--snr-db", "20", "9", "--trials", "3", "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ais_tpu_torch.cli.modem_bench", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    points = json.loads(lines[-1])["points"] if proc.returncode == 0 and lines else []
+    log("modem_bench", card=card, argv=argv, rc=proc.returncode, subprocess_s=seconds,
+        points=points, launches=launches)
+    clean = [p for p in points if p["snr_db"] == 20.0]
+    if proc.returncode != 0 or sorted(p["demod"] for p in clean) != ["feedforward", "mlse", "pll"] \
+            or any(p["decoded"] != p["trials"] for p in clean):
+        raise RuntimeError(f"modem_bench (rc {proc.returncode}): {points} {proc.stderr[-2000:]}")
+    return path_launches(launches, ("matched_filter",))
+
+
+def phase_ais_scope(card: str) -> dict:
+    """`ais_scope`'s panel data on the golden 250 ksps capture, computed on
+    the card: channel A through the `ChannelReceiver` front end (K5, the
+    resampler), then the taps block by block (K2).  The correlator peak
+    must lie at the packet (24 000 channel samples in, less the front
+    end's delay) and the drawn threshold must be `autocorr_threshold`'s.
+    The PNG is rendered only where matplotlib is installed."""
+    import importlib.util
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.cli import ais_scope
+    from ais_tpu_torch.pipeline.receiver import preamble_waveform
+    from ais_tpu_torch.scene import golden_capture
+    from ais_tpu_torch.sync.corr import autocorr_threshold
+
+    rate, packet_at, threshold = 250e3, 24_000, 0.9
+    iq = golden_capture(rate)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    baseband, cfg = ais_scope.scoped_baseband(iq, rate, "A", "cuda")
+    panels = ais_scope.compute_panels(iq, baseband, cfg, threshold, rate, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    want_thr = autocorr_threshold(preamble_waveform(cfg), threshold)
+    peak, thr = panels["peak"], panels["thr"]
+    rendered = importlib.util.find_spec("matplotlib") is not None
+    if rendered:
+        png = REPO / "build" / "chip_smoke" / "scope.png"
+        png.parent.mkdir(parents=True, exist_ok=True)
+        ais_scope.render(iq, baseband, cfg, threshold, str(png), rate, device="cuda")
+        rendered = png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    log("ais_scope", card=card, rate=rate, baseband_samples=int(baseband.size), peak=peak,
+        packet_at=packet_at, corr2_at_peak=float(panels["corr2"][peak]), thr=float(thr),
+        autocorr_threshold=float(want_thr), freq_chunks=int(panels["freq_est_hz"].size),
+        seconds=seconds, rendered=rendered, launches=launches)
+    if not packet_at - 256 <= peak <= packet_at + 256 or thr != want_thr \
+            or panels["corr2"][peak] <= thr:
+        raise RuntimeError(f"ais_scope: peak {peak} (packet at {packet_at}), thr {thr} "
+                           f"(autocorr_threshold {want_thr})")
+    return path_launches(launches, ("channelizer", "matched_filter"))
+
+
 def phase_scene(cfg, n_in: int):
     """The full-load scene of one step, synthesized once for every path."""
     from ais_tpu_torch.pipeline.wideband import wideband_geometry
@@ -1368,8 +1665,14 @@ def main() -> int:
              phase_radio_wideband_ppm(card, iq, tx_packets),
              phase_mlse(cfg, n_in, card, iq, tx_packets),
              phase_overflow(card, iq, tx_packets)]
+    # This slice's paths: the other timing formulations on the cr1 main
+    # path, wire-format selection, the debug taps and the two CLIs.
+    paths += [phase_timing_mode(phase, cfg, n_in, card, main_path["wire"], tx_packets)
+              for phase in TIMING_MODES]
+    paths += phase_wire_select(card, iq, tx_packets)
     del iq
-    paths += [phase_radio_channels(card), phase_ais_rx(card)]
+    paths += [phase_radio_channels(card), phase_ais_rx(card), phase_debug_taps(card),
+              phase_modem_bench(card), phase_ais_scope(card)]
     # Each kernel's launches over the paths that drive it (the probe's
     # over its own phase).
     for row in rows:

@@ -306,3 +306,66 @@ def test_native_sigma_delta_encoders(natives):
     got = native.sigma_delta_ci1(iq, 1.5)
     np.testing.assert_array_equal(got, ref_native.sigma_delta_ci1(iq, 1.5))
     np.testing.assert_array_equal(got, convert._sigma_delta_ci1_numpy(iq, 1.5))
+
+
+def test_stage_timer_copy_equal(monkeypatch):
+    """`utils/profiling.py:StageTimer`: the same source but for the class's
+    module, and the same report on the same clock."""
+    import ais_tpu.utils.profiling as ref_prof
+    import ais_tpu_torch.utils.profiling as prof
+
+    assert inspect.getsource(prof.StageTimer) == inspect.getsource(ref_prof.StageTimer)
+    assert str(inspect.signature(prof.trace)) == str(inspect.signature(ref_prof.trace))
+    ticks = iter(np.arange(0.0, 100.0, 0.125))
+    monkeypatch.setattr("time.perf_counter", lambda: float(next(ticks)))
+    reports = []
+    for mod in (ref_prof, prof):
+        t = mod.StageTimer()
+        for name in ("unpack", "deframe", "unpack", "dedup", "deframe", "unpack"):
+            with t.stage(name):
+                next(ticks)
+        reports.append((t.report(), dict(t.totals), dict(t.counts)))
+    assert reports[0] == reports[1] and reports[0][2] == {"unpack": 3, "deframe": 2, "dedup": 1}
+
+
+def _selection_capture(seed: int, kind: str) -> np.ndarray:
+    """A 2.4 Msps capture of seeded noise with tones in or out of the AIS
+    channels, short enough for a leaf test."""
+    rng = np.random.default_rng(seed)
+    n = 400_000
+    t = np.arange(n) / 2.4e6
+    iq = (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.01
+    burst = (t > 0.02) & (t < 0.05)
+    iq += 0.8 * np.exp(2j * np.pi * (25e3 + 300.0) * t) * burst
+    if kind == "two":
+        iq += 0.5 * np.exp(2j * np.pi * (-25e3 - 200.0) * t) * ((t > 0.08) & (t < 0.11))
+    if kind == "near_far":
+        iq += 0.002 * np.exp(2j * np.pi * -25e3 * t) * ((t > 0.08) & (t < 0.11))
+    if kind == "interferer":
+        iq += 6.0 * np.exp(2j * np.pi * 400e3 * t)
+    if kind == "weak":
+        iq += (rng.normal(size=n) + 1j * rng.normal(size=n)) * 0.6
+    return iq.astype(np.complex64)
+
+
+@pytest.mark.parametrize("kind", ["one", "two", "near_far", "interferer", "weak"])
+def test_wire_selection_copy_equal(kind):
+    """`ops/convert.py:wire_format_envelope` and `select_wire_format`: the
+    envelope's floats to 1e-9, the chosen format and the reason string
+    exactly, for every preferred format."""
+    import ais_tpu.ops.convert as ref_convert
+    import ais_tpu_torch.ops.convert as convert
+
+    iq = _selection_capture(31, kind)
+    want, got = ref_convert.wire_format_envelope(iq), convert.wire_format_envelope(iq)
+    assert sorted(want) == sorted(got) and want["channels_active"] == got["channels_active"]
+    for key in ("near_far_db", "interferer_db", "channel_snr_db"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-9)
+    seen = set()
+    for preferred in ("cr1", "ci1", "cd1", "ci8", "ci16"):
+        choice = convert.select_wire_format(iq, preferred)
+        assert choice == ref_convert.select_wire_format(iq, preferred)
+        seen.add(choice[0])
+    assert (str(inspect.signature(convert.select_wire_format))
+            == str(inspect.signature(ref_convert.select_wire_format)))
+    assert {"interferer": "ci8" in seen, "near_far": "ci8" in seen}.get(kind, True), seen

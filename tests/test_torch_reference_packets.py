@@ -5,8 +5,8 @@ scene's whole content (ROADMAP C).  Regenerate them on the CPU with
 
     JAX_PLATFORMS=cpu python tests/test_torch_reference_packets.py
 
-(about 1.5 min and 3 GB).  Scenes, each made exactly as `chip_smoke.py`
-makes it (seed 7):
+(about 4 min and 3 GB; name entries as arguments to rewrite only those).
+Scenes, each made exactly as `chip_smoke.py` makes it (seed 7):
 
   mlse_bench      the benchmark scene (96 blocks, 1762 packets), decoded
                   with `demod_mode="mlse"` (threshold 0.4).  The reference
@@ -15,13 +15,23 @@ makes it (seed 7):
                   and is demodulated on its own);
   radio_channels  21 s of the 250 ksps full-load scene through
                   `AisRadio(sample_rate=250e3).run` in 1 << 20-sample
-                  chunks.
+                  chunks;
+  pll_bench       the benchmark scene as cr1 wire bytes, decoded with
+                  `timing_mode="pll"` through `decode_wire` in 12-block
+                  steps;
+  pll_bench_3_blocks  the same at the scene and geometry of 3 blocks, one
+                  step: small enough for the test below to run the port
+                  on it on the CPU;
+  wire_select_bench   not packets: [format, reason] of
+                  `select_wire_format(iq, "cr1")` on the benchmark scene
+                  and on it under `chip_smoke.with_interferer`'s carrier.
 
 The reference runs its main-path formulations (the Pallas channelizer
 and correlator, in interpret mode here, and the FIR symbol comb), the
 ones the port implements; with its CPU defaults (FFT correlator, bank
 timing) it decodes another set.  Each packet is [designator,
-abs_sample, payload hex].  The test checks the file's form.
+abs_sample, payload hex].  The tests check the file's form, and the
+port's packets on the CPU against `pll_bench_3_blocks`.
 """
 
 from __future__ import annotations
@@ -74,7 +84,73 @@ def radio_channels() -> list:
     return cs.packet_keys(radio.run(cs.ArraySource(iq, rate), chunk_len=1 << 20))
 
 
-SCENES = {"mlse_bench": mlse_bench, "radio_channels": radio_channels}
+def _pll_scene(blocks: int):
+    """(config, n_in, cr1 wire bytes) of the benchmark scene at `blocks`
+    blocks, encoded as `chip_smoke.py`'s main path encodes it."""
+    import numpy as np
+
+    from ais_tpu_torch.ops.convert import host_bytes
+
+    import chip_smoke as cs
+
+    cfg, n_in = cs.bench_geometry(blocks)
+    iq, _ = cs.phase_scene(cfg, n_in)
+    cfg = cfg._replace(demod=dataclasses.replace(cfg.demod, timing_mode="pll"))
+    return cfg, n_in, host_bytes((iq * 0.7).astype(np.complex64), "cr1")
+
+
+def pll_bench(blocks: int | None = None, step_blocks: int = 12) -> list:
+    """The cr1 main path with `timing_mode="pll"`: the scene's cr1 wire
+    bytes through the reference's `decode_wire` in 12-block steps (the
+    same blocks as one 96-block step)."""
+    from ais_tpu.pipeline.wideband import WidebandConfig, WidebandReceiver
+    from ais_tpu_torch.pipeline.wideband import aligned_n_in, num_taps
+
+    import chip_smoke as cs
+
+    blocks = cs.N_BLOCKS if blocks is None else blocks
+    cfg, n_in, wire = _pll_scene(blocks)
+    demod = dataclasses.replace(cfg.demod, corr_path="pallas")
+    n48 = cfg.block_len + cfg.core_len * (step_blocks - 1)
+    n_step = aligned_n_in(cfg, (n48 - 1) * cfg.decimation + num_taps(cfg))
+    rcfg = WidebandConfig(*cfg._replace(demod=demod, compact_lanes=14 * 2 * step_blocks))
+    rx = WidebandReceiver(rcfg, n_in=n_step)
+    found = []
+    for step in range(blocks // step_blocks):
+        at = step * rx.step_raw
+        chunk = wire[at // 8: (at + n_step) // 8]
+        if chunk.size != n_step // 8:
+            raise RuntimeError(f"step {step} reads past the {blocks}-block wire")
+        found += rx.decode_wire(chunk, "cr1")
+    if rx._pos != blocks * cfg.core_len * cfg.decimation or rx._pos + n_step - rx.step_raw != n_in:
+        raise RuntimeError(f"the steps covered {rx._pos} raw samples, not {blocks} blocks")
+    return cs.packet_keys(found)
+
+
+PLL_SMALL_BLOCKS = 3
+
+
+def pll_bench_3_blocks() -> list:
+    return pll_bench(PLL_SMALL_BLOCKS, PLL_SMALL_BLOCKS)
+
+
+def wire_select_bench() -> dict:
+    """`select_wire_format(iq, "cr1")` on the benchmark scene and on the
+    same scene under `chip_smoke.with_interferer`'s carrier: [format,
+    reason] of each."""
+    from ais_tpu.ops.convert import select_wire_format
+
+    import chip_smoke as cs
+
+    cfg, n_in = cs.bench_geometry()
+    iq, _ = cs.phase_scene(cfg, n_in)
+    return {"scene": list(select_wire_format(iq, "cr1")),
+            "interferer": list(select_wire_format(cs.with_interferer(iq), "cr1"))}
+
+
+SCENES = {"mlse_bench": mlse_bench, "radio_channels": radio_channels, "pll_bench": pll_bench,
+          "pll_bench_3_blocks": pll_bench_3_blocks}
+SELECTIONS = {"wire_select_bench": wire_select_bench}
 
 
 def test_reference_packets_are_scene_packets():
@@ -86,8 +162,9 @@ def test_reference_packets_are_scene_packets():
 
     base = aivdm_payload_to_bytes(BASE_PAYLOAD)
     data = json.loads(FIXTURE.read_text())
-    assert sorted(data) == sorted(SCENES)
-    for scene, packets in data.items():
+    assert sorted(data) == sorted({**SCENES, **SELECTIONS})
+    for scene in SCENES:
+        packets = data[scene]
         assert packets == sorted(packets) and len({tuple(p) for p in packets}) == len(packets)
         for designator, abs_sample, payload in packets:
             raw = bytes.fromhex(payload)
@@ -95,14 +172,46 @@ def test_reference_packets_are_scene_packets():
             assert len(raw) == len(base) and raw[0] == base[0] and raw[4:] == base[4:], scene
 
 
+def test_wire_selections_name_a_format_and_a_reason():
+    """The benchmark scene keeps cr1; under the out-of-band carrier the
+    answer is ci8, for an interferer."""
+    data = json.loads(FIXTURE.read_text())["wire_select_bench"]
+    assert data["scene"] == ["cr1", "within envelope"]
+    fmt, reason = data["interferer"]
+    assert fmt == "ci8" and "interferer" in reason
+
+
+def test_port_pll_packets_equal_reference_at_3_blocks():
+    """The port's `timing_mode="pll"` packets on the CPU, at the benchmark
+    scene cut to 3 blocks, are the reference's stored set: content,
+    channel and position of every packet.  All 54 of the scene's packets
+    are there; the full set's first entries are the same packets."""
+    import torch
+
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    torch.set_num_threads(1)
+    cfg, n_in, wire = _pll_scene(PLL_SMALL_BLOCKS)
+    rx = WidebandReceiver(cfg, n_in=n_in, device="cpu")
+    got = cs.packet_keys(rx.decode_wire(wire, "cr1"))
+    data = json.loads(FIXTURE.read_text())
+    assert got == data["pll_bench_3_blocks"] and len(got) == 54 and rx.overflow_blocks == 0
+    full = {(d, h) for d, _, h in data["pll_bench"]}
+    assert {(d, h) for d, _, h in got} <= full and len(full) == 1762
+
+
 def main(names) -> None:
     os.environ.setdefault("AIS_TPU_CHAN", "pallas")
     sys.path.insert(0, str(REPO))
     data = json.loads(FIXTURE.read_text()) if FIXTURE.exists() else {}
-    for name in names or SCENES:
+    makers = {**SCENES, **SELECTIONS}
+    for name in names or makers:
         t0 = time.perf_counter()
-        data[name] = SCENES[name]()
-        print(f"{name}: {len(data[name])} packets in {time.perf_counter() - t0:.1f} s",
+        data[name] = makers[name]()
+        print(f"{name}: {len(data[name])} entries in {time.perf_counter() - t0:.1f} s",
               flush=True)
         FIXTURE.write_text(json.dumps(data, indent=0, sort_keys=True) + "\n")
 

@@ -39,7 +39,8 @@ for name in names:
     importlib.import_module(name)
 for want in ('core.params', 'ops.firdes', 'utils.bits', 'utils.cpm', 'decode.crc', 'decode.hdlc',
              'decode.nmea', 'decode.fields', 'tx.frame', 'tx.gmsk', 'tx.scenario', 'io.sources',
-             'io.rtl_tcp', 'io.grc', 'native'):
+             'io.rtl_tcp', 'io.grc', 'native', 'utils.profiling', 'sync.timing',
+             'cli.modem_bench', 'cli.ais_scope'):
     assert 'ais_tpu_torch.' + want in names, want
 import chip_smoke
 chip_smoke.bench_geometry()
@@ -80,6 +81,40 @@ assert '--device' in buf.getvalue(), buf.getvalue()
 check()
 """
 
+TOOLS = """
+import contextlib, io, json, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from ais_tpu_torch.cli import ais_scope, modem_bench
+from ais_tpu_torch.core.params import DemodConfig
+from ais_tpu_torch.ops.convert import select_wire_format
+from ais_tpu_torch.ops.fir import fir_filter
+from ais_tpu_torch.scene import golden_capture
+from ais_tpu_torch.utils.profiling import StageTimer, trace
+buf = io.StringIO()
+timer = StageTimer()
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+    with trace(tmp), timer.stage('bench'):
+        rc = modem_bench.main(['--demod', 'all', '--snr-db', '20', '--trials', '1', '--json',
+                               '--device', 'cpu', '--plot', tmp + '/modem.png'])
+points = json.loads(buf.getvalue().splitlines()[0])['points']
+assert rc == 0 and [p['success'] for p in points] == [1.0, 1.0, 1.0], points
+iq = golden_capture(250e3)
+baseband, cfg = ais_scope.scoped_baseband(iq, 250e3, 'A', 'cpu')
+panels = ais_scope.compute_panels(iq, baseband, cfg, 0.9, 250e3, device='cpu')
+assert abs(panels['peak'] - 24000) < 256
+with tempfile.TemporaryDirectory() as tmp:
+    ais_scope.render(iq, baseband, cfg, 0.9, tmp + '/scope.png', 250e3, device='cpu')
+assert select_wire_format(iq, 'cr1', rate=250e3)[0] in ('cr1', 'ci1', 'ci8')
+assert fir_filter(torch.from_numpy(iq[:500]), np.ones(5, np.float32), 5).shape == (100,)
+for change in ({'timing_mode': 'pll'}, {'ff_path': 'fft'}, {'ff_path': 'bank'}):
+    from ais_tpu_torch.pipeline.api import BasebandReceiver
+    rx = BasebandReceiver(demod=DemodConfig(**change), device='cpu')
+    assert len(rx.process(baseband)) == 1, change
+check()
+"""
+
 
 def _run_child(body: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -88,8 +123,9 @@ def _run_child(body: str) -> None:
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 
 
-@pytest.mark.parametrize("body", [WALK, DECODE, CLI_HELP],
-                         ids=["every_module_imports", "cr1_decode_wire", "cli_help"])
+@pytest.mark.parametrize("body", [WALK, DECODE, CLI_HELP, TOOLS],
+                         ids=["every_module_imports", "cr1_decode_wire", "cli_help",
+                              "timing_modes_and_tools"])
 def test_port_runs_without_the_reference_package(body):
     _run_child(body)
 

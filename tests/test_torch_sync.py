@@ -63,8 +63,10 @@ def test_constants_match_reference():
 
     np.testing.assert_array_equal(interp_taps(), ref_bank())
     assert tff.ff_delta(5.0, 0.4) == _calibrate(5, 0.4)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tff.ff_delta(4.8, 0.4)
+    # A non-integer sps calibrates at the nearest whole one, as the
+    # reference's `estimate_timing` does.
+    assert tff.ff_delta(4.8, 0.4) == _calibrate(5, 0.4)
+    assert tff.ff_delta(5.208, 0.4) == _calibrate(5, 0.4)
 
 
 def _bursts(seed: int, n: int = 6, length: int = 4608):

@@ -265,12 +265,16 @@ def test_wire_contract_checks():
     for fmt in tw.WIRE_FORMATS:
         with pytest.raises(ValueError, match="bytes"):
             rx.submit_wire(np.zeros(10, np.uint8), fmt)
-    bad = dataclasses.replace(tw.WidebandConfig().demod, timing_mode="pll")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tw.WidebandReceiver(tw.WidebandConfig(demod=bad), device="cpu")
-    for path in ("fft", "bank"):
-        bad = dataclasses.replace(tw.WidebandConfig().demod, ff_path=path)
-        with pytest.raises(NotImplementedError, match="A.11"):
+    # Every timing formulation of the reference builds, and reaches the
+    # demodulator unchanged; an unknown one is refused as the reference
+    # refuses it.
+    for change in ({"timing_mode": "pll"}, {"ff_path": "fft"}, {"ff_path": "bank"}):
+        demod = dataclasses.replace(tw.WidebandConfig().demod, **change)
+        built = tw.WidebandReceiver(tw.WidebandConfig(demod=demod), device="cpu")
+        assert built.demod.cfg == demod
+    for change, match in (({"timing_mode": "bogus"}, "timing_mode"), ({"ff_path": "fir2"}, "ff_path")):
+        bad = dataclasses.replace(tw.WidebandConfig().demod, **change)
+        with pytest.raises(ValueError, match=match):
             tw.WidebandReceiver(tw.WidebandConfig(demod=bad), device="cpu")
     mlse = dataclasses.replace(tw.WidebandConfig().demod, demod_mode="mlse")
     assert tw.WidebandReceiver(tw.WidebandConfig(demod=mlse), device="cpu").demod.trellis
