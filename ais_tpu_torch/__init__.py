@@ -8,14 +8,19 @@ version beside it in the same module: a wrapper runs that plain version
 only for a tensor on the CPU, and for a CUDA tensor launches the kernel
 or raises.
 
-What runs today (slices 1-3): complex IQ or wire bytes of every format
--> packets through `pipeline.wideband.WidebandReceiver` (`decode`,
-`flush`, `decode_wire(raw, fmt)`), with overflow recovery and either
-bit decision (discriminator or coherent MLSE); the `ais_rx` receive
-path: `pipeline.radio.AisRadio` (fused wideband at whole decimations,
-ppm-shifted carriers included; per-channel `pipeline.api`
-receivers with the host resampler otherwise) and the CLI
-`python -m ais_tpu_torch.cli.ais_rx`.
+What runs today: complex IQ or wire bytes of every format -> packets
+through `pipeline.wideband.WidebandReceiver` (`decode`, `flush`,
+`decode_wire(raw, fmt)`), with overflow recovery, either bit decision
+(discriminator or coherent MLSE) and either timing recovery
+(feedforward, with its FIR, FFT and bank extractions, or the PLL loop);
+the `ais_rx` receive path: `pipeline.radio.AisRadio` (fused wideband at
+whole decimations, ppm-shifted carriers included; per-channel
+`pipeline.api` receivers with the host resampler otherwise); the CLIs
+`ais_rx`, `ais_scope` and `modem_bench` (`python -m
+ais_tpu_torch.cli.<name>`); wire-format selection; and multi-device
+decode (`parallel`: sharded demod, halo exchange, stream x time, the
+sharded wire program, and the block and stream decoders over the
+processes of a `torch.distributed` group).
 
 Module map (port <- reference):
 
@@ -32,10 +37,16 @@ ops/framing.py, window.py, agc.py     the same names
 ops/freq.py, demod.py, interp.py      the same names
 ops/matched_filter.py (K2)            ops/pallas_corr.py
 sync/corr.py, feedforward.py, mlse.py the same names
+sync/timing.py, utils/profiling.py    the same names
 pipeline/receiver.py, host.py         the same names
 pipeline/wideband.py, recover.py      the same names
 pipeline/api.py, radio.py             the same names
-cli/ais_rx.py                         cli/ais_rx.py
+cli/ais_rx.py, ais_scope.py,          the same names
+modem_bench.py
+parallel/mesh.py, pipeline.py,        parallel/mesh.py, pipeline.py,
+distributed.py                        distributed.py
+parallel/dryrun.py                    __graft_entry__.py:dryrun_multichip
+parallel/worker.py                    tools/multihost_worker.py
 ====================================  ====================================
 
 The port imports nothing of `ais_tpu`, not even its numpy-only leaf

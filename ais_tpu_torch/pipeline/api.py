@@ -27,11 +27,10 @@ from ais_tpu_torch.core.params import DeframerConfig, DemodConfig, ReceiverConfi
 from ais_tpu_torch.ops.firdes import low_pass
 from ais_tpu_torch.ops.fir import freq_xlating_fir_decimate, mixer_phase
 from ais_tpu_torch.ops.resample import PfbArbResampler
-from ais_tpu_torch.pipeline.host import PacketDeduper, decode_block_records
+from ais_tpu_torch.pipeline.host import PacketDeduper, deframe_records
 from ais_tpu_torch.pipeline.receiver import (
     BurstDemod,
-    BurstRecords,
-    demod_constants,
+    make_burst_demod,
     required_halo,
 )
 
@@ -93,15 +92,11 @@ class BasebandReceiver:
         packets: list = []
         if arr.size > 0:
             blocks = torch.from_numpy(frame_stream(arr, self.block_len, self.core_len).copy())
-            rec = self._demod(blocks.to(self.device))
-            rec_np = BurstRecords(*(t.cpu().numpy() for t in rec))
             cfg = self.demod_cfg
-            for b in range(blocks.shape[0]):
-                packets.extend(decode_block_records(
-                    BurstRecords(*(a[b] for a in rec_np)), base + b * self.core_len,
-                    designator=self.designator, deframer=self.deframer_cfg,
-                    deduper=self._deduper, fftlen=cfg.fftlen,
-                    samples_per_symbol=cfg.samples_per_symbol))
+            packets = deframe_records(
+                self._demod(blocks.to(self.device)), base, self.core_len, self.designator,
+                self._deduper, deframer=self.deframer_cfg, fftlen=cfg.fftlen,
+                samples_per_symbol=cfg.samples_per_symbol)
         keep = min(arr.size, self._overlap)
         self._tail = arr[arr.size - keep:]
         return packets
@@ -115,9 +110,8 @@ class BasebandReceiver:
         self._demod = self._build_demod()
 
     def _build_demod(self) -> BurstDemod:
-        pre, bank, delta = demod_constants(self.demod_cfg)
-        return BurstDemod(self.demod_cfg, self.block_len, self.core_len, preamble=pre,
-                          interp_bank=bank, ff_delta=delta, device=self.device)
+        return make_burst_demod(self.demod_cfg, self.block_len, self.core_len,
+                                device=self.device)
 
     def get_threshold(self) -> float:
         return self.demod_cfg.resolved_corr_threshold

@@ -2,7 +2,7 @@
 
 Port of `ais_tpu/pipeline/host.py` (the wire path's
 `decode_wire_records` and the complex-IQ path's per-block
-`decode_block_records`), in numpy (it
+`decode_block_records`, over a block axis `deframe_records`), in numpy (it
 runs on the host after the device-to-host fetch, and the reference's
 module cannot be imported without jax).  All valid bursts of a fetch
 deframe in one native call (`ais_tpu_torch.native.hdlc_deframe_packed_batch`)
@@ -16,6 +16,7 @@ import logging
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ais_tpu_torch.core.params import DeframerConfig
 
@@ -216,6 +217,24 @@ def decode_block_records(records, block_start_sample: int, designator: str = "A"
             float(freq_est[chunk]) if freq_est.size else 0.0, designator, deduper,
             samples_per_symbol, packets, rssi=float(rssis[k]),
         )
+    return packets
+
+
+def deframe_records(records, start: int, core_len: int, designator: str = "A",
+                    deduper: PacketDeduper | None = None, n_blocks: int | None = None,
+                    deframer: DeframerConfig = DeframerConfig(), fftlen: int = 1024,
+                    samples_per_symbol: float = 5.0) -> list:
+    """Deframe BurstRecords with a leading block axis (tensors or host
+    arrays) into packets: block b starts at sample start + b * core_len,
+    the first `n_blocks` blocks (all by default) in block order, every
+    block through the one `deduper`."""
+    rec = [np.asarray(a.cpu()) if torch.is_tensor(a) else np.asarray(a) for a in records]
+    packets: list[DecodedPacket] = []
+    for b in range(rec[0].shape[0] if n_blocks is None else n_blocks):
+        packets.extend(decode_block_records(
+            records._make(a[b] for a in rec), start + b * core_len, designator=designator,
+            deframer=deframer, deduper=deduper, fftlen=fftlen,
+            samples_per_symbol=samples_per_symbol))
     return packets
 
 

@@ -2,7 +2,8 @@
 
 `BurstDemod` ports `ais_tpu/pipeline/receiver.py:make_burst_demod` with
 both timing recoveries of `timing_mode` and either bit decision of
-`demod_mode`; `make_debug_taps` ports the scopes' intermediate signals.
+`demod_mode`, and `make_burst_demod` builds one from the reference's
+constants; `make_debug_taps` ports the scopes' intermediate signals.
 One call maps a (B, block_len) batch of halo'd blocks to a fixed-size
 table of K burst records per block:
 
@@ -119,8 +120,11 @@ class BurstDemod(torch.nn.Module):
 
     def __init__(self, cfg: DemodConfig, block_len: int, core_len: int, *,
                  preamble: np.ndarray, interp_bank: np.ndarray, ff_delta: float,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("BurstDemod on 'cuda' needs a CUDA device; pass device='cpu' "
+                               "for the CPU")
         if block_len % cfg.fftlen != 0:
             raise ValueError(f"block_len {block_len} not a multiple of fftlen {cfg.fftlen}")
         if core_len > block_len - required_halo(cfg):
@@ -265,15 +269,24 @@ class BurstDemod(torch.nn.Module):
         return {k: v[0] for k, v in taps.items()} if single else taps
 
 
+def make_burst_demod(cfg: DemodConfig, block_len: int, core_len: int, *, device="cuda",
+                     constants: tuple | None = None) -> BurstDemod:
+    """The block demodulator on `device`: (B, block_len) complex64 ->
+    BurstRecords with leading (B,).  `constants` is (preamble,
+    interpolation bank, feedforward delta), the reference's by default
+    (`demod_constants`)."""
+    pre, bank, delta = demod_constants(cfg) if constants is None else constants
+    return BurstDemod(cfg, block_len, core_len, preamble=pre, interp_bank=bank,
+                      ff_delta=delta, device=device)
+
+
 def make_debug_taps(cfg: DemodConfig, block_len: int, *, device="cuda"):
     """Intermediate-signal taps for scopes and debugging: a function from
     a (block_len,) block (numpy or tensor; moved to `device`) to a dict
     of named tensors on `device` (`BurstDemod.debug_taps`)."""
     if block_len % cfg.fftlen != 0:
         raise ValueError(f"block_len {block_len} not a multiple of fftlen {cfg.fftlen}")
-    pre, bank, delta = demod_constants(cfg)
-    demod = BurstDemod(cfg, block_len, block_len - required_halo(cfg), preamble=pre,
-                       interp_bank=bank, ff_delta=delta, device=device)
+    demod = make_burst_demod(cfg, block_len, block_len - required_halo(cfg), device=device)
 
     def taps(x) -> dict:
         return demod.debug_taps(torch.as_tensor(x, dtype=torch.complex64).to(demod.interp_bank.device))

@@ -69,8 +69,8 @@ from ais_tpu_torch.ops.wire_channelizer import (
 )
 from ais_tpu_torch.pipeline.host import (
     PacketDeduper,
-    decode_block_records,
     decode_wire_records,
+    deframe_records,
     suppress_image_ghosts,
 )
 from ais_tpu_torch.pipeline.receiver import (
@@ -467,6 +467,11 @@ class WidebandReceiver:
             return "iq", functools.partial(iq_from_bytes_cr1, n_samples=self.n_in)
         raise ValueError(f"unsupported wire format {fmt!r}; the receiver takes {WIRE_FORMATS}")
 
+    def prepare(self, fmt: str) -> torch.nn.Module:
+        """Build the channelizer that `fmt`'s wire bytes run through, its
+        tables on the device, ahead of the first step; returns it."""
+        return self.channelizer_for(self._wire_route(fmt)[0])
+
     def demod_channels(self, chans: torch.Tensor) -> BurstRecords:
         """(n_chan, n48) channels -> records with leading (n_chan, n_blocks):
         overlap-save framing (a strided view) and one batched demod."""
@@ -508,7 +513,7 @@ class WidebandReceiver:
         if raw_u8.size != want:
             raise ValueError(
                 f"{fmt} wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
-        self.channelizer_for(self._wire_route(fmt)[0])
+        self.prepare(fmt)
         at = self._pos if pos is None else int(pos)
         host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
         raw = host.to(self.device, non_blocking=True)
@@ -682,12 +687,10 @@ class WidebandReceiver:
         cfg = self.cfg
         packets = []
         for c in range(self.n_chan):
-            for b in range(self.n_blocks):
-                packets.extend(decode_block_records(
-                    BurstRecords(*(a[c, b] for a in rec_np)), chan_start + b * self.core_len,
-                    designator=cfg.designators[c], deframer=cfg.deframer,
-                    deduper=self._dedupers[c], fftlen=cfg.demod.fftlen,
-                    samples_per_symbol=cfg.sps))
+            packets.extend(deframe_records(
+                BurstRecords(*(a[c] for a in rec_np)), chan_start, self.core_len,
+                cfg.designators[c], self._dedupers[c], self.n_blocks, deframer=cfg.deframer,
+                fftlen=cfg.demod.fftlen, samples_per_symbol=cfg.sps))
         if over and cfg.overflow_recovery:
             packets.extend(self._recover(iq_raw, chan_start * cfg.decimation, over))
         packets.sort(key=lambda p: p.abs_sample)

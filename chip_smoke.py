@@ -77,7 +77,25 @@ overflow recovery, the CLI), in phases, one result line each:
      trial must decode in each chain;
  17. ais_scope: `compute_panels` on the golden 250 ksps capture: the
      correlator peak inside the packet's span, the threshold equal to
-     `autocorr_threshold`'s; the PNG only where matplotlib is installed.
+     `autocorr_threshold`'s; the PNG only where matplotlib is installed;
+ 18. the mesh (`ais_tpu_torch.parallel`) over the cards there are, shard
+     i on cuda:{i % device_count} (on one card: logical shards, a CUDA
+     stream each); every line prints n_shards and n_physical.
+     sharded_wire: the bench wire as 4 shards of 24 blocks (K = 24,
+     compact_lanes = 14*2*24) through `make_sharded_wire_pipeline`, whose
+     spans cover the bench step exactly: its packets must be the main
+     path's, packet for packet, with one K1 and one K2 launch a shard
+     step; its wall ms beside the single-device step's.  sharded_demod,
+     halo_exchange, stream_sharded: channel A (and B, on a 2 x 4 grid) of
+     the bench step at 48 ksps, 96 blocks over 8 shards: each packet set
+     must be the single-device `BasebandReceiver`'s on the same stream;
+     halo_exchange also against the duplication path, lane by lane.
+     distributed_stream: `DistributedStreamDecoder` over channel A in
+     70 001-sample chunks, 48 blocks a call: the one-shot
+     `DistributedBlockDecoder`'s packets.  two_process: two
+     `python -m ais_tpu_torch.parallel.worker` children in one gloo group
+     (rank r on cuda:{r % device_count}): both must write the packets
+     one process decodes.  dryrun_multichip: `dryrun_multichip(4)`.
 
 Each path runs with every launch count set to 0 just before it and
 reads them just after: each kernel of the path must have launched, and
@@ -140,6 +158,9 @@ BURST_SPAN_2P4M = 64500    # the scene's packet span at 2.4 Msps
 # amplitude of a packet of the scene (whose packets have amplitude 1).
 INTERFERER_HZ, INTERFERER_GAIN = 500e3, 10.0
 WIRE_SELECT_BLOCKS = 8     # blocks a step of the wire_select decodes
+MESH_WIRE_SHARDS = 4       # shards of the sharded_wire phase, N_BLOCKS / 4 blocks each
+MESH_SHARDS = 8            # shards of the mesh phases at 48 ksps
+DIST_CHUNK, DIST_BLOCKS_PER_CALL = 70_001, 48  # the rolling decoder's chunks and calls
 REPO = Path(__file__).resolve().parent
 # The JAX reference's packets on the mlse and radio_channels scenes,
 # where it does not decode the whole content either (ROADMAP C):
@@ -817,6 +838,7 @@ def phase_main_path(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> di
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
     }
     log("main_path", **out)
+    out.update(rx=rx, packets=found)
     if parity != 1.0:
         raise RuntimeError(f"content parity {parity} != 1.0")
     if rx.overflow_blocks:
@@ -1620,6 +1642,303 @@ def phase_ais_scope(card: str) -> dict:
     return path_launches(launches, ("channelizer", "matched_filter"))
 
 
+def mesh_fields(mesh) -> dict:
+    return {"n_shards": mesh.n_shards, "n_physical": mesh.n_physical}
+
+
+def mesh_kernels(launches: dict) -> dict:
+    """K1, K2 and K5's counts, as every mesh phase prints them."""
+    return {k: launches[k] for k in ("wire_channelizer_cr1", "matched_filter", "channelizer")}
+
+
+def record_packets(rec, demod_cfg, core_len: int, designator: str) -> list:
+    """Host decode of burst records with a leading block axis, block b at
+    channel sample b * core_len, one deduper."""
+    from ais_tpu_torch.pipeline.host import PacketDeduper, deframe_records
+
+    return deframe_records(rec, 0, core_len, designator, PacketDeduper(),
+                           fftlen=demod_cfg.fftlen,
+                           samples_per_symbol=demod_cfg.samples_per_symbol)
+
+
+def phase_sharded_wire(card: str, main_path: dict, tx_packets) -> dict:
+    """The main path split over MESH_WIRE_SHARDS shards of the time mesh:
+    one overlap-save wire step of N_BLOCKS / MESH_WIRE_SHARDS blocks a
+    shard (K = 24, 14 lanes a (channel, block)), whose spans cover the
+    bench step's blocks and n_in exactly; its packets must be the single-
+    device step's, packet for packet."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.parallel import make_sharded_wire_pipeline, make_time_mesh
+    from ais_tpu_torch.pipeline.wideband import WidebandReceiver
+    from ais_tpu_torch.scene import content_parity
+
+    shards = MESH_WIRE_SHARDS
+    cfg, n_in = bench_geometry(N_BLOCKS // shards)
+    rx = WidebandReceiver(cfg, n_in=n_in, device="cuda")
+    step_raw, single = rx.step_raw, main_path["rx"]
+    if shards * step_raw != single.step_raw or (shards - 1) * step_raw + n_in != single.n_in:
+        raise RuntimeError(f"{shards} steps of {step_raw} do not cover the bench step")
+    wire = main_path["wire"]
+    spans = np.stack([wire[d * step_raw // 8: (d * step_raw + n_in) // 8]
+                      for d in range(shards)])
+    ph = np.stack([rx._phase0s(d * step_raw) for d in range(shards)])
+    mesh = make_time_mesh(shards)
+    fn = make_sharded_wire_pipeline(cfg, n_in, mesh, fmt="cr1")
+
+    def step():
+        rx.reset_dedup()
+        t0 = time.perf_counter()
+        rows = fn(spans, ph).cpu().numpy()
+        t1 = time.perf_counter()
+        packets = []
+        for d in range(shards):
+            packets.extend(rx.decode_fetched((rows[d], d * step_raw // cfg.decimation,
+                                              spans[d], "cr1", d * step_raw)))
+        return packets, t1 - t0, time.perf_counter() - t1
+
+    _build.reset_launch_counts()
+    found, _, _ = step()
+    times = [step()[1:] for _ in range(TIMED_STEPS)]
+    launches = _build.launch_counts()
+    steps = 1 + TIMED_STEPS
+    diff = packet_diff(found, packet_keys(main_path["packets"]))
+    wall = [(a + b) * 1e3 for a, b in times]
+    out = {"card": card, **mesh_fields(mesh), "blocks_per_shard": rx.n_blocks,
+           "n_in_per_shard": n_in, "step_raw_per_shard": step_raw,
+           "compact_lanes": cfg.compact_lanes, "packets": len(found),
+           "single_device_packets": len(main_path["packets"]),
+           "content_parity": content_parity(found, tx_packets, cfg.decimation),
+           "overflow_blocks": rx.overflow_blocks, "steps": steps,
+           "wall_ms": wall, "wall_ms_median": statistics.median(wall),
+           "device_and_fetch_ms_median": statistics.median(a * 1e3 for a, _ in times),
+           "host_ms_median": statistics.median(b * 1e3 for _, b in times),
+           "single_device_step_ms_median": main_path["step_ms_median"],
+           "single_device_host_ms": main_path["host_ms_per_step"],
+           "kernels": mesh_kernels(launches), "differ": diff}
+    log("sharded_wire", **out)
+    if diff["only_port"] or diff["only_reference"] or out["content_parity"] != 1.0:
+        raise RuntimeError(f"sharded wire: the packets differ from the single-device step's: "
+                           f"{ {k: len(v) for k, v in diff.items()} }")
+    if rx.overflow_blocks:
+        raise RuntimeError(f"sharded wire: {rx.overflow_blocks} blocks overflowed")
+    on_path = path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+    if any(n != shards * steps for n in on_path.values()):
+        raise RuntimeError(f"K1 and K2 should launch once a shard step: {on_path} in {steps} "
+                           f"steps of {shards} shards")
+    return launches
+
+
+def phase_mesh_demods(card: str, main_path: dict) -> tuple[list, np.ndarray]:
+    """sharded_demod, halo_exchange and stream_sharded on the bench step's
+    channels at 48 ksps (K1 on its wire bytes): 96 blocks over
+    MESH_SHARDS shards, each packet set held to the single-device
+    `BasebandReceiver` on the same stream.  Returns the phases' launch
+    counts and channel A's stream."""
+    import torch
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.parallel import (
+        make_halo_exchange_demod, make_sharded_demod, make_sharded_stream_demod,
+        make_stream_time_mesh, make_time_mesh,
+    )
+    from ais_tpu_torch.pipeline.api import BasebandReceiver
+
+    rx = main_path["rx"]
+    cfg, core, block = rx.demod_cfg, rx.core_len, rx.cfg.block_len
+    halo = block - core
+    raw = torch.from_numpy(main_path["wire"]).to("cuda")
+    chans = rx.wire_channels(raw, torch.from_numpy(rx._phase0s(0)).to("cuda"), "cr1")
+    blocks = chans.unfold(-1, block, core)[:, : rx.n_blocks]           # (2, 96, block)
+    names = rx.cfg.designators
+
+    def single(stream: np.ndarray, designator: str) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        found = BasebandReceiver(demod=cfg, designator=designator, device="cuda").process(stream)
+        return found, (time.perf_counter() - t0) * 1e3
+
+    def check(phase: str, mesh, packets: list, want: list, wall_ms: float, single_ms: float,
+              launches: dict, **extra) -> dict:
+        diff = packet_diff(packets, packet_keys(want))
+        log(phase, card=card, **mesh_fields(mesh), blocks=int(blocks.shape[1]),
+            packets=len(packets), single_device_packets=len(want), wall_ms=wall_ms,
+            single_device_ms=single_ms, kernels=mesh_kernels(launches), **extra,
+            differ=diff)
+        if diff["only_port"] or diff["only_reference"] or not packets:
+            raise RuntimeError(f"{phase}: the packets differ from one device's: {diff}")
+        if launches["matched_filter"] != mesh.n_shards:
+            raise RuntimeError(f"{phase}: K2 launched {launches['matched_filter']} times "
+                               f"for {mesh.n_shards} shards")
+        return launches
+
+    streams = [chans[c].cpu().numpy() for c in range(2)]
+    wants = [single(streams[c], names[c]) for c in range(2)]
+    mesh = make_time_mesh(MESH_SHARDS)
+    out = []
+
+    fn = make_sharded_demod(cfg, block, core, mesh)
+    fn(blocks[0])  # warm-up: the replicas' first launches
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = record_packets(fn(blocks[0]), cfg, core, names[0])
+    wall = (time.perf_counter() - t0) * 1e3
+    out.append(check("sharded_demod", mesh, found, wants[0][0], wall, wants[0][1],
+                     _build.launch_counts()))
+
+    # Halo exchange against duplication on one stream: the head zeroed
+    # and the tail padded with zeros, so the ring's wrap (shard 0's
+    # head) is what the duplication path sees after the last block.
+    s = chans[0, : rx.n_blocks * core].clone()
+    s[:halo] = 0
+    dup = fn(torch.cat([s, torch.zeros(halo, dtype=s.dtype, device=s.device)])
+             .unfold(0, block, core))
+    exch = make_halo_exchange_demod(cfg, block, core, mesh, rx.n_blocks)
+    exch(s.reshape(rx.n_blocks, core))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = exch(s.reshape(rx.n_blocks, core))
+    found = record_packets(rec, cfg, core, names[0])
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    lanes = torch.zeros(rec.valid.shape, dtype=torch.bool, device=rec.valid.device)
+    for name in ("position", "center", "phase", "mag", "valid", "bits", "bit_valid",
+                 "win_start", "rssi"):
+        a, b = getattr(rec, name), getattr(dup, name)
+        lanes |= (a != b).reshape(*lanes.shape, -1).any(-1)
+    identical = all(torch.equal(a, b) for a, b in zip(rec, dup))
+    dup_packets = record_packets(dup, cfg, core, names[0])
+    want, single_ms = single(s.cpu().numpy(), names[0])
+    if packet_keys(dup_packets) != packet_keys(want):
+        raise RuntimeError("halo_exchange: the duplication path's packets differ from one device's")
+    out.append(check("halo_exchange", mesh, found, want, wall, single_ms, launches,
+                     bit_identical_to_duplication=identical,
+                     lanes_differing=int(lanes.sum()), duplication_packets=len(dup_packets)))
+
+    grid = make_stream_time_mesh(2, MESH_SHARDS // 2)
+    fn2 = make_sharded_stream_demod(cfg, block, core, grid)
+    fn2(blocks)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = fn2(blocks)
+    found = [record_packets(rec._make(t[c] for t in rec), cfg, core, names[c]) for c in range(2)]
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    for c in range(2):
+        diff = packet_diff(found[c], packet_keys(wants[c][0]))
+        if diff["only_port"] or diff["only_reference"]:
+            raise RuntimeError(f"stream_sharded: channel {names[c]} differs from one device's")
+    out.append(check("stream_sharded", grid, found[0] + found[1], wants[0][0] + wants[1][0],
+                     wall, wants[0][1] + wants[1][1], launches, grid=list(grid.shape),
+                     packets_per_stream=[len(f) for f in found]))
+    return out, streams[0]
+
+
+def phase_distributed_stream(card: str, main_path: dict, stream: np.ndarray) -> dict:
+    """`DistributedStreamDecoder` over channel A of the bench step in
+    unaligned chunks of DIST_CHUNK samples, DIST_BLOCKS_PER_CALL blocks a
+    call over MESH_SHARDS shards: the one-shot `DistributedBlockDecoder`'s
+    packets, packet for packet."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.parallel.distributed import (
+        DistributedBlockDecoder, DistributedStreamDecoder,
+    )
+
+    cfg = main_path["rx"].demod_cfg
+    one_shot = DistributedBlockDecoder(cfg, n_devices=MESH_SHARDS)
+    want = one_shot.decode_stream(stream)
+    sd = DistributedStreamDecoder(cfg, n_devices=MESH_SHARDS,
+                                  blocks_per_call=DIST_BLOCKS_PER_CALL)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    found = []
+    for lo in range(0, stream.size, DIST_CHUNK):
+        found.extend(sd.process(stream[lo: lo + DIST_CHUNK]))
+    found.extend(sd.flush())
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    diff = packet_diff(found, packet_keys(want))
+    log("distributed_stream", card=card, **mesh_fields(sd.block.mesh),
+        world_size=sd.block.world_size, chunk=DIST_CHUNK, blocks_per_call=sd.blocks_per_call,
+        calls=sd._pos // sd.step, packets=len(found), one_shot_packets=len(want),
+        wall_ms=wall, kernels=mesh_kernels(launches), differ=diff)
+    if diff["only_port"] or diff["only_reference"] or not found:
+        raise RuntimeError(f"distributed_stream: the packets differ from one-shot's: {diff}")
+    return launches
+
+
+def phase_two_process(card: str) -> dict:
+    """Two `python -m ais_tpu_torch.parallel.worker` children in one gloo
+    group, rank r on card r % device_count, 4 shards each: both must
+    write the packets one process decodes (the 4 of the synthesized
+    capture).  Returns the children's launch counts, summed."""
+    import socket
+    import tempfile
+
+    from ais_tpu_torch.parallel.distributed import DistributedBlockDecoder
+    from ais_tpu_torch.parallel.worker import synthesize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.json" for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ais_tpu_torch.parallel.worker", coordinator, "2", str(r),
+             str(outs[r])],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            errors = [p.communicate(timeout=300)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"two_process: a worker failed: {[e[-2000:] for e in errors]}")
+        results = [json.loads(path.read_text()) for path in outs]
+    dec = DistributedBlockDecoder(n_devices=8)
+    want = [{"nmea": p.nmea, "abs_sample": p.abs_sample}
+            for p in dec.decode_stream(synthesize(dec.core_len * 8))]
+    launches = {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+    log("two_process", card=card, n_processes=results[0]["n_processes"],
+        n_shards=results[0]["n_shards"], n_physical=len({r["device"] for r in results}),
+        devices=[r["device"] for r in results], packets=[len(r["packets"]) for r in results],
+        one_process_packets=len(want), wall_s=wall,
+        decode_ms=[r["decode_s"] * 1e3 for r in results], kernels=mesh_kernels(launches))
+    if results[0]["packets"] != results[1]["packets"] or results[0]["packets"] != want \
+            or len(want) != 4:
+        raise RuntimeError(f"two_process: packets {results[0]['packets']} / "
+                           f"{results[1]['packets']}, one process {want}")
+    return launches
+
+
+def phase_dryrun_multichip(card: str) -> dict:
+    """`dryrun_multichip(4)`: each sharded program once on tiny shapes."""
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    log("dryrun_multichip", card=card, **out, packets=0, wall_ms=wall,
+        kernels=mesh_kernels(launches))
+    path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+    return launches
+
+
+def phase_mesh(card: str, main_path: dict, tx_packets) -> list:
+    """The mesh, on this process's cards, and two processes in one group:
+    each phase's launch counts."""
+    paths = [phase_sharded_wire(card, main_path, tx_packets)]
+    mesh_paths, stream_a = phase_mesh_demods(card, main_path)
+    return paths + [*mesh_paths, phase_distributed_stream(card, main_path, stream_a),
+                    phase_two_process(card), phase_dryrun_multichip(card)]
+
+
 def phase_scene(cfg, n_in: int):
     """The full-load scene of one step, synthesized once for every path."""
     from ais_tpu_torch.pipeline.wideband import wideband_geometry
@@ -1671,6 +1990,7 @@ def main() -> int:
               for phase in TIMING_MODES]
     paths += phase_wire_select(card, iq, tx_packets)
     del iq
+    paths += phase_mesh(card, main_path, tx_packets)
     paths += [phase_radio_channels(card), phase_ais_rx(card), phase_debug_taps(card),
               phase_modem_bench(card), phase_ais_scope(card)]
     # Each kernel's launches over the paths that drive it (the probe's

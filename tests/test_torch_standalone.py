@@ -40,7 +40,8 @@ for name in names:
 for want in ('core.params', 'ops.firdes', 'utils.bits', 'utils.cpm', 'decode.crc', 'decode.hdlc',
              'decode.nmea', 'decode.fields', 'tx.frame', 'tx.gmsk', 'tx.scenario', 'io.sources',
              'io.rtl_tcp', 'io.grc', 'native', 'utils.profiling', 'sync.timing',
-             'cli.modem_bench', 'cli.ais_scope'):
+             'cli.modem_bench', 'cli.ais_scope', 'parallel.mesh', 'parallel.pipeline',
+             'parallel.distributed', 'parallel.dryrun', 'parallel.worker'):
     assert 'ais_tpu_torch.' + want in names, want
 import chip_smoke
 chip_smoke.bench_geometry()
@@ -115,6 +116,20 @@ for change in ({'timing_mode': 'pll'}, {'ff_path': 'fft'}, {'ff_path': 'bank'}):
 check()
 """
 
+PARALLEL = """
+import json, tempfile
+import torch
+torch.set_num_threads(1)
+from ais_tpu_torch.parallel import worker
+from ais_tpu_torch.parallel.dryrun import dryrun_multichip
+assert dryrun_multichip(4, device='cpu')['wire'][0] == 4
+with tempfile.TemporaryDirectory() as tmp:
+    assert worker.main(['none', '1', '0', tmp + '/out.json', '--device', 'cpu']) == 0
+    out = json.load(open(tmp + '/out.json'))
+assert (out['n_processes'], out['n_shards'], len(out['packets'])) == (1, 4, 4), out
+check()
+"""
+
 
 def _run_child(body: str) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -123,9 +138,9 @@ def _run_child(body: str) -> None:
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 
 
-@pytest.mark.parametrize("body", [WALK, DECODE, CLI_HELP, TOOLS],
+@pytest.mark.parametrize("body", [WALK, DECODE, CLI_HELP, TOOLS, PARALLEL],
                          ids=["every_module_imports", "cr1_decode_wire", "cli_help",
-                              "timing_modes_and_tools"])
+                              "timing_modes_and_tools", "parallel_dryrun_and_worker"])
 def test_port_runs_without_the_reference_package(body):
     _run_child(body)
 

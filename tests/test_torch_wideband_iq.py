@@ -133,6 +133,22 @@ def test_constructor_builds_channelizers_lazily():
         rx.device_step(np.zeros(10, np.complex64), 0)
 
 
+def test_prepare_builds_the_route_channelizer():
+    """`prepare(fmt)` builds only the channelizer `fmt`'s bytes run
+    through: cr1 on K1 where K1 takes the geometry, on K5 where it does
+    not; ci8 always on K5; an unknown format raises."""
+    rx = tw.WidebandReceiver(tw.WidebandConfig(), n_in=900_000, device="cpu")
+    assert rx.prepare("cr1") is rx.channelizer_for("cr1")
+    assert set(rx._channelizers) == {"cr1"}
+    assert rx.prepare("ci8") is rx.channelizer_for("iq")
+    odd = tw.WidebandReceiver(tw.WidebandConfig(offsets_hz=(-1e3, 1e3)), n_in=900_000,
+                              device="cpu")
+    assert odd.prepare("cr1") is odd.channelizer_for("iq")
+    assert set(odd._channelizers) == {"iq"}
+    with pytest.raises(ValueError, match="unsupported wire format"):
+        odd.prepare("cu8")
+
+
 def test_overflow_raises_on_the_complex_path(run, caplog):
     """K = 1 cannot hold a block's bursts: the step re-demodulates the
     overflowed blocks with a larger table and decodes the reference's
