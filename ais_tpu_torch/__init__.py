@@ -20,7 +20,10 @@ whole decimations, ppm-shifted carriers included; per-channel
 ais_tpu_torch.cli.<name>`); wire-format selection; and multi-device
 decode (`parallel`: sharded demod, halo exchange, stream x time, the
 sharded wire program, and the block and stream decoders over the
-processes of a `torch.distributed` group).
+processes of a `torch.distributed` group); and the multi-process wire
+fan (`pipeline.multiproc.MultiProcessWideband`: wire steps over N worker
+processes on one card, each with its own receiver, so the host back
+half of several steps runs at once).
 
 Module map (port <- reference):
 
@@ -41,6 +44,7 @@ sync/timing.py, utils/profiling.py    the same names
 pipeline/receiver.py, host.py         the same names
 pipeline/wideband.py, recover.py      the same names
 pipeline/api.py, radio.py             the same names
+pipeline/multiproc.py                 the same name
 cli/ais_rx.py, ais_scope.py,          the same names
 modem_bench.py
 parallel/mesh.py, pipeline.py,        parallel/mesh.py, pipeline.py,

@@ -11,6 +11,10 @@ point launches on the stream it is given and returns
 Each kernel keeps a launch count (`Kernel.launches`), bumped only where
 its wrapper launches it, so a run can show that its main path went
 through the kernel.  `reset_launch_counts()` zeroes them all.
+
+`require_card` is the one check that a module owning a kernel is on the
+card it was asked for: the port defaults to `cuda` and never falls back
+to the CPU unless the caller asks for it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -94,6 +100,16 @@ def _compile_and_link(out: Path) -> str:
     for obj in objs:
         obj.unlink()
     return log
+
+
+def require_card(device, owner: str) -> torch.device:
+    """`device` as a torch.device; raises RuntimeError, naming
+    device='cpu', when it is a CUDA device and there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{owner} on {str(dev)!r} needs a CUDA device; pass device='cpu' "
+                           f"for the CPU")
+    return dev
 
 
 def library() -> ctypes.CDLL:

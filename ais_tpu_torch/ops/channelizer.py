@@ -355,8 +355,9 @@ class Channelizer(torch.nn.Module):
     reference's fft mode for carriers with no short period)."""
 
     def __init__(self, taps, decim: int, offsets_hz, sample_rate: float, n_in: int,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        device = _build.require_card(device, type(self).__name__)
         taps = torch.tensor(np.asarray(taps, np.float32), device=device)
         if not channelizer_supported(taps.numel(), decim, offsets_hz, sample_rate, n_in):
             raise NotImplementedError(

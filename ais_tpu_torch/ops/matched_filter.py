@@ -78,8 +78,9 @@ def matched_filter(x: torch.Tensor, taps_conj: torch.Tensor):
 class MatchedFilter(torch.nn.Module):
     """Correlator against a fixed preamble; owns the conjugated taps."""
 
-    def __init__(self, preamble: np.ndarray, device=None):
+    def __init__(self, preamble: np.ndarray, device="cuda"):
         super().__init__()
+        device = _build.require_card(device, type(self).__name__)
         pc = np.conj(np.asarray(preamble, np.complex64)).astype(np.complex64)
         self.register_buffer("taps_conj", torch.tensor(pc, device=device))
 

@@ -557,8 +557,9 @@ class WireChannelizer(torch.nn.Module):
     unrotated carrier table and the kernel's folded taps."""
 
     def __init__(self, taps: np.ndarray, decim: int, offsets_hz,
-                 sample_rate: float, n_in: int, device=None):
+                 sample_rate: float, n_in: int, device="cuda"):
         super().__init__()
+        device = _build.require_card(device, type(self).__name__)
         taps = np.asarray(taps, np.float32)
         if not wire_channelizer_supported("cr1", taps.size, decim, offsets_hz,
                                           sample_rate, n_in):
@@ -594,7 +595,7 @@ class PackedWireChannelizer(Channelizer):
     bit-stream taps of K3's 1-bit form (`folded`, else None)."""
 
     def __init__(self, fmt: str, taps, decim: int, offsets_hz, sample_rate: float,
-                 n_in: int, device=None):
+                 n_in: int, device="cuda"):
         if fmt not in PACKED:
             raise ValueError(f"no packed wire channelizer for {fmt!r}")
         if n_in % PACKED[fmt].samples_per_byte:

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ais_tpu_torch import _build
 from ais_tpu_torch.core.params import BURST_GRID, DemodConfig
 from ais_tpu_torch.ops.agc import feedforward_agc
 from ais_tpu_torch.ops.demod import quadrature_demod, slice_diff_invert
@@ -122,9 +123,7 @@ class BurstDemod(torch.nn.Module):
                  preamble: np.ndarray, interp_bank: np.ndarray, ff_delta: float,
                  device="cuda"):
         super().__init__()
-        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BurstDemod on 'cuda' needs a CUDA device; pass device='cpu' "
-                               "for the CPU")
+        device = _build.require_card(device, "BurstDemod")
         if block_len % cfg.fftlen != 0:
             raise ValueError(f"block_len {block_len} not a multiple of fftlen {cfg.fftlen}")
         if core_len > block_len - required_halo(cfg):

@@ -34,7 +34,15 @@ overflow recovery, the CLI), in phases, one result line each:
      fir_only: the channelizers' yardstick;
   5. main path (cr1): a warm-up decode whose packets must match the
      transmitted ones (content parity 1.0), then timed steps, then the
-     time of each stage;
+     time of each stage; fan: the main path's wire replayed at 16 stream
+     positions, through the main path's receiver alone, then through
+     `MultiProcessWideband` (2 workers and the parent's pump with the
+     exec lock on, 4 with it on, the same 4 with it off): each window
+     must give the single process's packets, packet for packet, with K1
+     and K2 once a step summed over the processes, every worker warm
+     within 180 s and no worker error; each window's wall (submit and
+     pump, then drain), Msps beside the single process's, per-step phase
+     split and h2d probes;
   6. complex_iq: `decode` of the same scene as complex64 samples
      (parity 1.0), its step time and stages;
   7. wire_formats: one `decode_wire` per format (ci16, ci8, ci4, ci2,
@@ -161,6 +169,13 @@ WIRE_SELECT_BLOCKS = 8     # blocks a step of the wire_select decodes
 MESH_WIRE_SHARDS = 4       # shards of the sharded_wire phase, N_BLOCKS / 4 blocks each
 MESH_SHARDS = 8            # shards of the mesh phases at 48 ksps
 DIST_CHUNK, DIST_BLOCKS_PER_CALL = 70_001, 48  # the rolling decoder's chunks and calls
+# The fan phase: steps a window, its windows (workers, exec lock on), the
+# bounded wait for every worker to be warm, and how long the parent's pump
+# waits on an empty queue before it leaves the rest to drain().
+FAN_STEPS = 16
+FAN_WINDOWS = ((2, True), (4, True), (4, False))
+FAN_READY_S = 180.0
+FAN_PUMP_IDLE_S = 0.1
 REPO = Path(__file__).resolve().parent
 # The JAX reference's packets on the mlse and radio_channels scenes,
 # where it does not decode the whole content either (ROADMAP C):
@@ -851,6 +866,101 @@ def phase_main_path(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> di
     log("stages", card=card, **stage_breakdown(rx, wire))
     out["wire"] = wire
     return out
+
+
+def phase_fan(card: str, main_path: dict) -> list:
+    """The multi-process wire fan (`MultiProcessWideband`, cr1) on this
+    card at the main path's geometry: the main path's wire replayed at
+    FAN_STEPS stream positions (pos = i * step_raw), first through the main
+    path's receiver alone (the yardstick), then in FAN_WINDOWS, each with
+    the parent's pump as one more worker and fresh step indices.  Every
+    window must decode the yardstick's packets, packet for packet (each
+    step the main path's shifted by i * step_raw / decimation), with K1 and
+    K2 once a step summed over the processes and no worker error.  Returns
+    the yardstick's and each window's launch counts."""
+    import os
+
+    from ais_tpu_torch import _build
+    from ais_tpu_torch.pipeline.multiproc import PHASES, MultiProcessWideband
+
+    rx, wire, steps = main_path["rx"], main_path["wire"], FAN_STEPS
+    cfg = rx.cfg
+    step_chan = rx.step_raw // cfg.decimation
+    one = packet_keys(main_path["packets"])
+
+    def shifted(keys: list, by_steps: int) -> list:
+        return sorted([d, a + by_steps * step_chan, h] for d, a, h in keys)
+
+    def full(counts: dict) -> dict:
+        return {name: counts.get(name, 0) for name in _build.launch_counts()}
+
+    rx.reset_dedup()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = []
+    for i in range(steps):
+        single.extend(rx.collect(rx.submit_wire(wire, "cr1", pos=i * rx.step_raw)))
+    single_s = time.perf_counter() - t0
+    paths = [_build.launch_counts()]
+    want = packet_keys(single)
+    if want != sorted(k for i in range(steps) for k in shifted(one, i)):
+        raise RuntimeError("fan: the single-process steps are not the main path's packets "
+                           "shifted step by step")
+    single_msps = rx.n_in * steps / single_s / 1e6
+    host_cpus = len(os.sched_getaffinity(0))
+    fan, startup_s = None, None
+    try:
+        for w, (n_workers, locked) in enumerate(FAN_WINDOWS):
+            if fan is None or fan.n_workers != n_workers:
+                if fan is not None:
+                    fan.close()
+                t0 = time.perf_counter()
+                fan = MultiProcessWideband(cfg, n_in=rx.n_in, n_workers=n_workers, fmt="cr1",
+                                           device="cuda")
+                fan.start(timeout=FAN_READY_S)  # raises on a worker error or a timeout
+                startup_s = time.perf_counter() - t0
+            fan.set_serialize_exec(locked)
+            fan.reset_collect_stats()
+            rx.reset_dedup()
+            base = w * steps
+            t0 = time.perf_counter()
+            for i in range(steps):
+                fan.submit(base + i, wire)
+            pumped = fan.parent_pump(rx, idle_timeout=FAN_PUMP_IDLE_S)
+            t_pump = time.perf_counter()
+            got = fan.drain(timeout=FAN_READY_S)
+            wall = time.perf_counter() - t0
+            st = fan.collect_stats
+            launches = full(st["launches"])
+            keys = shifted(packet_keys(got), -base)
+            only_fan = len({tuple(k) for k in keys} - {tuple(k) for k in want})
+            only_single = len({tuple(k) for k in want} - {tuple(k) for k in keys})
+            log("fan", card=card, n_workers=n_workers, locked=locked, steps=st["steps"],
+                pumped=pumped, startup_s=startup_s, host_cpus=host_cpus, ready=fan._ready,
+                packets=len(got), single_process_packets=len(want),
+                packets_per_step=len(one), only_fan=only_fan, only_single=only_single,
+                wall_ms=wall * 1e3, pump_ms=(t_pump - t0) * 1e3,
+                drain_ms=(t0 + wall - t_pump) * 1e3, msamples_per_s=rx.n_in * steps / wall / 1e6,
+                single_process_wall_ms=single_s * 1e3,
+                single_process_msamples_per_s=single_msps,
+                per_step_ms={k[:-2]: st[k] / max(st["steps"], 1) * 1e3 for k in PHASES},
+                h2d_mbps=fan.h2d_mbps, worker_errors=fan.worker_errors,
+                kernels=mesh_kernels(launches))
+            if keys != want:
+                raise RuntimeError(f"fan ({n_workers} workers, locked={locked}): the packets "
+                                   f"differ from the single process's ({only_fan} only in the "
+                                   f"fan, {only_single} only in the single process)")
+            if fan.worker_errors:
+                raise RuntimeError(f"fan: worker errors {fan.worker_errors}")
+            on_path = path_launches(launches, ("wire_channelizer_cr1", "matched_filter"))
+            if st["steps"] != steps or any(n != steps for n in on_path.values()):
+                raise RuntimeError(f"fan: K1 and K2 should launch once a step: {on_path} in "
+                                   f"{st['steps']} steps of {steps}")
+            paths.append(launches)
+    finally:
+        if fan is not None:
+            fan.close()
+    return paths
 
 
 def phase_complex_iq(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) -> dict:
@@ -1968,6 +2078,7 @@ def main() -> int:
     iq, tx_packets = phase_scene(cfg, n_in)
     card = env["card"]
     main_path = phase_main_path(cfg, n_in, card, iq, tx_packets)
+    fan_paths = phase_fan(card, main_path)
     complex_path = phase_complex_iq(cfg, n_in, card, iq, tx_packets)["launches"]
     formats = phase_wire_formats(cfg, n_in, card, iq, tx_packets)
     # Launches a step on the path that uses each kernel: the cr1 path's
@@ -1980,7 +2091,7 @@ def main() -> int:
     per_step["wire_channelizer_ci1_mma"] = formats["ci1"]["wire_channelizer_ci1_mma"]
     ci1_ppm = phase_wire_ci1_ppm(card, iq, tx_packets)
     per_step["wire_channelizer_ci1"] = ci1_ppm["wire_channelizer_ci1"]
-    paths = [main_path["launches"], complex_path, *formats.values(), ci1_ppm,
+    paths = [main_path["launches"], *fan_paths, complex_path, *formats.values(), ci1_ppm,
              phase_radio_wideband_ppm(card, iq, tx_packets),
              phase_mlse(cfg, n_in, card, iq, tx_packets),
              phase_overflow(card, iq, tx_packets)]

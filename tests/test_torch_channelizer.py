@@ -65,7 +65,7 @@ def test_k5_plain_matches_pallas_kernel(geometry, start):
     ph = _phase0s(offsets, rate, start)
     ref = PallasChannelizer(taps, decim, offsets, rate, n_in, interpret=True)
     want = np.asarray(ref(jnp.asarray(to_planes(iq)), jnp.asarray(ph)))
-    chan = tch.Channelizer(taps, decim, offsets, rate, n_in)
+    chan = tch.Channelizer(taps, decim, offsets, rate, n_in, device="cpu")
     got = chan(torch.from_numpy(iq), torch.from_numpy(ph)).numpy()
     assert got.shape == (len(offsets), chan.n_out)
     _close(got, want)
@@ -86,7 +86,7 @@ def test_k3_k4_plain_matches_pallas_kernel(fmt):
     want = np.asarray(pallas_wire_channelizer(
         jnp.asarray(raw), jnp.asarray(ph), jnp.asarray(car), jnp.asarray(h), fmt=fmt,
         ntaps=TAPS.size, decim=DECIM, offsets=OFFSETS, rate=RATE, n_in=n_in, interpret=True))
-    chan = twc.PackedWireChannelizer(fmt, TAPS, DECIM, OFFSETS, RATE, n_in)
+    chan = twc.PackedWireChannelizer(fmt, TAPS, DECIM, OFFSETS, RATE, n_in, device="cpu")
     got = chan(torch.from_numpy(raw), torch.from_numpy(ph)).numpy()
     _close(got, want)
 
@@ -159,7 +159,7 @@ def test_unsupported_geometry_raises_naming_the_fft_formulation():
     offsets, n_in = (25e3 * np.sqrt(2), -25e3), 80_000
     iq = _iq(n_in, 21)
     ph = _phase0s(offsets, RATE, 4242)
-    chan = tch.Channelizer(TAPS, DECIM, offsets, RATE, n_in)
+    chan = tch.Channelizer(TAPS, DECIM, offsets, RATE, n_in, device="cpu")
     assert chan.full_table and chan.carrier.shape == (2, n_in, 2)
     n_out = (n_in - TAPS.size) // DECIM + 1
     car = np.concatenate([_mixer_carrier(o, RATE, n_in) for o in offsets])
@@ -168,12 +168,12 @@ def test_unsupported_geometry_raises_naming_the_fft_formulation():
         jnp.asarray(to_planes(polyphase_spectra(TAPS, DECIM, n_out)))))
     _close(chan(torch.from_numpy(iq), torch.from_numpy(ph)).numpy(), want)
     raw = tconvert.host_bytes(iq, "ci2")
-    wire = twc.PackedWireChannelizer("ci2", TAPS, DECIM, offsets, RATE, n_in)
+    wire = twc.PackedWireChannelizer("ci2", TAPS, DECIM, offsets, RATE, n_in, device="cpu")
     got = wire(torch.from_numpy(raw), torch.from_numpy(ph)).numpy()
     _close(got, chan(tconvert.iq_from_bytes_ci2(torch.from_numpy(raw)),
                      torch.from_numpy(ph)).numpy())
     with pytest.raises(NotImplementedError, match="shared memory"):
-        tch.Channelizer(TAPS, 4000, offsets * 2, RATE, 80_000)
+        tch.Channelizer(TAPS, 4000, offsets * 2, RATE, 80_000, device="cpu")
 
 
 def test_dispatch_takes_plain_version_only_on_cpu():
@@ -190,6 +190,26 @@ def test_dispatch_takes_plain_version_only_on_cpu():
                                     decim=DECIM, n_in=80_000)
     x, y = torch.ones(SHAPE), torch.arange(1024.0).reshape(SHAPE)
     assert torch.equal(probe(x, y), 2 * x + y)
+
+
+@pytest.mark.parametrize("module", ["Channelizer", "WireChannelizer", "PackedWireChannelizer",
+                                    "MatchedFilter"])
+def test_kernel_module_defaults_to_the_card(module, monkeypatch):
+    """Each module that owns a kernel defaults to `cuda` and raises
+    without a card, naming device='cpu'; it never lands on the CPU."""
+    from ais_tpu_torch.ops.matched_filter import MatchedFilter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    geometry = (TAPS, DECIM, OFFSETS, RATE, 80_000)
+    build = {
+        "Channelizer": lambda **kw: tch.Channelizer(*geometry, **kw),
+        "WireChannelizer": lambda **kw: twc.WireChannelizer(*geometry, **kw),
+        "PackedWireChannelizer": lambda **kw: twc.PackedWireChannelizer("ci2", *geometry, **kw),
+        "MatchedFilter": lambda **kw: MatchedFilter(np.ones(140, np.complex64), **kw),
+    }[module]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    assert next(iter(build(device="cpu").buffers())).device.type == "cpu"
 
 
 def _kernel_vs_plain(cuda, fmt: str, n_in: int):

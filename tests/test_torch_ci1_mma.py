@@ -70,7 +70,7 @@ def test_folded_form_matches_plain_and_reference_kernel(n_chan):
     n_in, offsets = 80_000, _offsets(n_chan)
     raw = _ci1_wire(n_in, 17 + n_chan)
     ph = np.stack([mixer_phase(o, RATE, 777) for o in offsets])
-    chan = twc.PackedWireChannelizer("ci1", TAPS, DECIM, offsets, RATE, n_in)
+    chan = twc.PackedWireChannelizer("ci1", TAPS, DECIM, offsets, RATE, n_in, device="cpu")
     assert chan.folded is not None and chan.folded.ntaps == 2 * TAPS.size
     assert chan.frags.dtype == torch.int32
     assert tuple(chan.frags.shape) == (-(-2 * TAPS.size // 128), 8, -(-n_chan // 2), 32, 2)
@@ -94,7 +94,8 @@ def test_folded_form_other_decimations(decim, n_in):
     a wire that ends inside a 32-bit word."""
     offsets = _offsets(2)
     assert n_in % decim == 0 and n_in % 4 == 0 and (decim != 51 or (n_in // 4) % 4)
-    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, decim, offsets, RATE, n_in)
+    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, decim, offsets, RATE, n_in,
+                                    device="cpu")
     rng = np.random.default_rng(decim)
     raw = torch.from_numpy(rng.integers(0, 256, n_in // 4, dtype=np.uint8))
     car = twc.rotate_carrier(chan.carrier,
@@ -280,14 +281,17 @@ def test_module_on_the_cpu_returns_the_plain_version():
     n_in, offsets = 40_000, _offsets(2)
     raw = torch.from_numpy(_ci1_wire(n_in, 3))
     ph = torch.tensor([0.3, 5.1])
-    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, offsets, RATE, n_in)
+    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, offsets, RATE, n_in,
+                                    device="cpu")
     want = twc.wire_channelizer_packed_plain(
         "ci1", raw, twc.rotate_carrier(chan.carrier, ph), chan.taps, DECIM)
     assert torch.equal(chan(raw, ph), want)
     # A geometry the 1-bit form refuses has no fragments, and K4's modules none.
-    other = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, (25e3 * np.sqrt(2),), RATE, n_in)
+    other = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, (25e3 * np.sqrt(2),), RATE,
+                                      n_in, device="cpu")
     assert other.folded is None and other.full_table
-    assert twc.PackedWireChannelizer("ci2", SMALL_TAPS, DECIM, offsets, RATE, n_in).folded is None
+    assert twc.PackedWireChannelizer("ci2", SMALL_TAPS, DECIM, offsets, RATE, n_in,
+                                     device="cpu").folded is None
 
 
 def test_cd1_through_ci1_equals_ci1():
@@ -300,7 +304,8 @@ def test_cd1_through_ci1_equals_ci1():
     cd1 = torch.from_numpy(tconvert.host_bytes(iq, "cd1"))
     via = tconvert.ci1_from_bytes_cd1(cd1, n_in)
     assert torch.equal(via, ci1) and via.data_ptr() % 4 == 0
-    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, offsets, RATE, n_in)
+    chan = twc.PackedWireChannelizer("ci1", SMALL_TAPS, DECIM, offsets, RATE, n_in,
+                                    device="cpu")
     car = twc.rotate_carrier(chan.carrier, torch.tensor([1.0, 2.0]))
     a = twc.wire_channelizer_ci1_folded(via, car, chan.folded, DECIM, n_in)
     b = twc.wire_channelizer_ci1_folded(ci1, car, chan.folded, DECIM, n_in)

@@ -48,7 +48,7 @@ def test_plain_matches_pallas_kernel(signal, preamble):
 
     want_c, want_m = pallas_matched_filter(jnp.asarray(signal), preamble,
                                            with_mag2=True, interpret=True)
-    got_c, got_m = MatchedFilter(preamble)(torch.from_numpy(signal))
+    got_c, got_m = MatchedFilter(preamble, device="cpu")(torch.from_numpy(signal))
     assert got_c.shape == want_c.shape == (3, 4096 - 140 + 1)
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=2e-4)
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=1e-5, atol=1e-4)
@@ -93,7 +93,7 @@ def test_row_lengths_off_the_kernel_tile(preamble, n, taps_len):
     x = ((rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))) * 0.1).astype(np.complex64)
     p = preamble[:taps_len]
     x[1, n - taps_len - 3: n - 3] += p
-    corr, mag2 = MatchedFilter(p)(torch.from_numpy(x))
+    corr, mag2 = MatchedFilter(p, device="cpu")(torch.from_numpy(x))
     assert corr.shape == mag2.shape == (2, n - taps_len + 1)
     want = np.stack([np.correlate(row.astype(np.complex128), p.astype(np.complex128),
                                   mode="valid") for row in x])

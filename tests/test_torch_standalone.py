@@ -41,7 +41,8 @@ for want in ('core.params', 'ops.firdes', 'utils.bits', 'utils.cpm', 'decode.crc
              'decode.nmea', 'decode.fields', 'tx.frame', 'tx.gmsk', 'tx.scenario', 'io.sources',
              'io.rtl_tcp', 'io.grc', 'native', 'utils.profiling', 'sync.timing',
              'cli.modem_bench', 'cli.ais_scope', 'parallel.mesh', 'parallel.pipeline',
-             'parallel.distributed', 'parallel.dryrun', 'parallel.worker'):
+             'parallel.distributed', 'parallel.dryrun', 'parallel.worker',
+             'pipeline.multiproc'):
     assert 'ais_tpu_torch.' + want in names, want
 import chip_smoke
 chip_smoke.bench_geometry()
@@ -130,9 +131,41 @@ assert (out['n_processes'], out['n_shards'], len(out['packets'])) == (1, 4, 4), 
 check()
 """
 
+# A one-worker fan: the worker is a spawned interpreter, which the
+# meta-path block does not reach, so it runs with the stub packages of
+# `blocked` first on its path (inherited from this child's).
+FAN = """
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from ais_tpu_torch.ops.convert import host_bytes
+from ais_tpu_torch.pipeline import wideband as tw
+from ais_tpu_torch.pipeline.multiproc import MultiProcessWideband
+from ais_tpu_torch.tx import aivdm_payload_to_bytes
+from ais_tpu_torch.tx.scenario import Scenario, ScenarioPacket
+if __name__ == '__main__':
+    cfg = tw.WidebandConfig()
+    fan = MultiProcessWideband(cfg, n_in=(cfg.block_len - 1) * cfg.decimation + tw.num_taps(cfg),
+                               n_workers=1, fmt='cr1', device='cpu')
+    raw = aivdm_payload_to_bytes('14eG;o@034o8sd<L9i:a;WF>062D')
+    iq = Scenario(sample_rate=2.4e6, n_samples=fan.n_in, noise=0.004,
+                  packets=[ScenarioPacket(raw, 200000, -25e3, phase=0.7)]).build()
+    try:
+        fan.start(timeout=120)
+        fan.submit(0, host_bytes((iq * 0.7).astype(np.complex64), 'cr1'))
+        found = fan.drain(timeout=120)
+    finally:
+        fan.close()
+    assert [p.nmea for p in found] == ['!AIVDM,1,1,,A,14eG;o@034o8sd<L9i:a;WF>062D,0*7D'], found
+    assert not fan.worker_errors, fan.worker_errors
+    check()
+"""
 
-def _run_child(body: str) -> None:
+
+def _run_child(body: str, pythonpath: str | None = None) -> None:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    if pythonpath is not None:
+        env.update(PYTHONPATH=pythonpath, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", PRELUDE + body], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
@@ -143,6 +176,15 @@ def _run_child(body: str) -> None:
                               "timing_modes_and_tools", "parallel_dryrun_and_worker"])
 def test_port_runs_without_the_reference_package(body):
     _run_child(body)
+
+
+def test_fan_worker_runs_without_the_reference_package(tmp_path):
+    blocked = tmp_path / "blocked"
+    for name in FORBIDDEN:
+        (blocked / name).mkdir(parents=True)
+        (blocked / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked: the port stands alone')\n")
+    _run_child(FAN, pythonpath=f"{blocked}{os.pathsep}{REPO}")
 
 
 def test_no_source_file_of_the_port_imports_the_reference_or_jax():

@@ -107,7 +107,7 @@ def test_plain_matches_pallas_kernel(n_in):
         fmt="cr1", ntaps=TAPS.size, decim=DECIM, offsets=OFFSETS, rate=RATE,
         n_in=n_in, interpret=True,
     ))
-    chan = WireChannelizer(TAPS, DECIM, OFFSETS, RATE, n_in)
+    chan = WireChannelizer(TAPS, DECIM, OFFSETS, RATE, n_in, device="cpu")
     got = chan(torch.from_numpy(raw), torch.from_numpy(phase0s)).numpy()
     assert got.shape == want.shape == (2, chan.n_out)
     scale = np.abs(want).max()
@@ -122,7 +122,7 @@ def test_supported_geometry():
     assert not wire_channelizer_supported("cr1", TAPS.size, DECIM, OFFSETS, RATE, 80_004)
     assert not wire_channelizer_supported("cr1", TAPS.size, DECIM, (np.pi * 1e4,), RATE)
     with pytest.raises(ValueError, match="unsupported"):
-        WireChannelizer(TAPS, DECIM, OFFSETS, RATE, 80_004)
+        WireChannelizer(TAPS, DECIM, OFFSETS, RATE, 80_004, device="cpu")
 
 
 def test_dispatch_takes_plain_version_only_on_cpu():
@@ -163,7 +163,7 @@ def test_folded_form_matches_plain(n_chan):
     from ais_tpu_torch.ops.wire_channelizer import wire_channelizer_cr1_folded
 
     n_in, offsets = 40_000, _offsets(n_chan)
-    chan = WireChannelizer(SMALL_TAPS, DECIM, offsets, RATE, n_in)
+    chan = WireChannelizer(SMALL_TAPS, DECIM, offsets, RATE, n_in, device="cpu")
     assert chan.frags.dtype == torch.int32
     assert tuple(chan.frags.shape) == (-(-SMALL_TAPS.size // 128), 8, -(-n_chan // 2), 32, 2)
     rng = np.random.default_rng(40 + n_chan)
