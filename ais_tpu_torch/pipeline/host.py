@@ -1,8 +1,9 @@
 """Host back half: burst records -> HDLC frames -> deduplicated packets.
 
 Port of `ais_tpu/pipeline/host.py` (the wire path's
-`decode_wire_records` and the complex-IQ path's per-block
-`decode_block_records`, over a block axis `deframe_records`), in numpy (it
+`decode_wire_records`, in two parts that the receiver times apart,
+`deframe_wire_records` and `emit_wire_frames`; the complex-IQ path's
+per-block `decode_block_records`, over a block axis `deframe_records`), in numpy (it
 runs on the host after the device-to-host fetch, and the reference's
 module cannot be imported without jax).  All valid bursts of a fetch
 deframe in one native call (`ais_tpu_torch.native.hdlc_deframe_packed_batch`)
@@ -124,19 +125,16 @@ def _emit_packets(frames, win_start: int, block_start_sample: int, mag: float,
             out.append(packet)
 
 
-def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
-                        designators=("A", "B"), dedupers=None,
-                        deframer: DeframerConfig = DeframerConfig(),
-                        samples_per_symbol: float = 5.0) -> list:
-    """Decode a host WireRecords fetch (`pipeline/wideband.py`) into packets.
-
-    Frames come out in lane order (channel, block, burst), the order the
-    dedupers admit them in; the result is sorted by abs_sample."""
+def deframe_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
+                         deframer: DeframerConfig = DeframerConfig()) -> tuple:
+    """The frames of a host WireRecords fetch (`pipeline/wideband.py`):
+    (lanes, triples), `lanes` the valid lanes' flat (channel, block,
+    burst) ids in lane order, `triples` [(payload, start_bit, index into
+    `lanes`)] in lane order, from one native call (or the numpy
+    deframer, lane by lane)."""
     meta_i = np.asarray(wire.meta_i)  # (C, B, K, 6)
-    meta_f = np.asarray(wire.meta_f)  # (C, B, K, 3)
     packed = np.asarray(wire.packed)  # (C, B, K, 2, n_pack)
     C, B, K, _ = meta_i.shape
-    packets: list[DecodedPacket] = []
 
     n_det = meta_i[:, :, 0, 3]
     for c, b in zip(*np.nonzero(n_det > K)):
@@ -148,24 +146,12 @@ def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
 
     lanes = np.nonzero(meta_i[..., 2].reshape(-1))[0].astype(np.int32)
     if lanes.size == 0:
-        return packets
-
-    def emit(lane: int, frames) -> None:
-        c, rem = divmod(lane, B * K)
-        b, k = divmod(rem, K)
-        _emit_packets(
-            frames, int(meta_i[c, b, k, 1]), chan_start + b * core_len,
-            float(meta_f[c, b, k, 0]), float(meta_f[c, b, k, 1]), designators[c],
-            dedupers[c] if dedupers is not None else None, samples_per_symbol,
-            packets, rssi=float(meta_f[c, b, k, 2]),
-        )
-
-    triples = None
+        return lanes, []
     if native_available():
         from ais_tpu_torch import native
 
         try:
-            triples = native.hdlc_deframe_packed_batch(
+            return lanes, native.hdlc_deframe_packed_batch(
                 packed.reshape(C * B * K, 2, -1), lanes, n_sym,
                 deframer.min_length_bytes, deframer.max_length_bytes,
                 max_frames=8 * lanes.size + 64,
@@ -173,18 +159,51 @@ def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
         except ValueError:
             # Geometry beyond the C kernel's static bit buffer: the
             # numpy path below handles it.
-            triples = None
-    if triples is not None:
-        for payload, start_bit, li in triples:
-            emit(int(lanes[li]), [(payload, start_bit)])
-    else:
-        planes = np.unpackbits(packed, axis=-1)[..., :n_sym]  # (C,B,K,2,n_sym)
-        flat = planes.reshape(C * B * K, 2, n_sym)
-        for lane in lanes:
-            row = flat[lane]
-            emit(int(lane), _deframe_burst(row[0][row[1].astype(bool)], deframer))
+            pass
+    planes = np.unpackbits(packed, axis=-1)[..., :n_sym]  # (C,B,K,2,n_sym)
+    flat = planes.reshape(C * B * K, 2, n_sym)
+    triples = []
+    for li, lane in enumerate(lanes):
+        row = flat[lane]
+        triples.extend((payload, start_bit, li) for payload, start_bit
+                       in _deframe_burst(row[0][row[1].astype(bool)], deframer))
+    return lanes, triples
+
+
+def emit_wire_frames(wire, lanes, triples, chan_start: int, core_len: int,
+                     designators=("A", "B"), dedupers=None,
+                     samples_per_symbol: float = 5.0) -> list:
+    """Packets of `deframe_wire_records`' frames: each anchored and
+    dedup-admitted in lane order (channel, block, burst); the result is
+    sorted by abs_sample."""
+    meta_i = np.asarray(wire.meta_i)
+    meta_f = np.asarray(wire.meta_f)  # (C, B, K, 3)
+    _, B, K, _ = meta_i.shape
+    packets: list[DecodedPacket] = []
+    for payload, start_bit, li in triples:
+        c, rem = divmod(int(lanes[li]), B * K)
+        b, k = divmod(rem, K)
+        _emit_packets(
+            [(payload, start_bit)], int(meta_i[c, b, k, 1]), chan_start + b * core_len,
+            float(meta_f[c, b, k, 0]), float(meta_f[c, b, k, 1]), designators[c],
+            dedupers[c] if dedupers is not None else None, samples_per_symbol,
+            packets, rssi=float(meta_f[c, b, k, 2]),
+        )
     packets.sort(key=lambda p: p.abs_sample)
     return packets
+
+
+def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
+                        designators=("A", "B"), dedupers=None,
+                        deframer: DeframerConfig = DeframerConfig(),
+                        samples_per_symbol: float = 5.0) -> list:
+    """Decode a host WireRecords fetch (`pipeline/wideband.py`) into packets.
+
+    Frames come out in lane order (channel, block, burst), the order the
+    dedupers admit them in; the result is sorted by abs_sample."""
+    lanes, triples = deframe_wire_records(wire, n_sym, chan_start, core_len, deframer)
+    return emit_wire_frames(wire, lanes, triples, chan_start, core_len, designators, dedupers,
+                            samples_per_symbol)
 
 
 def decode_block_records(records, block_start_sample: int, designator: str = "A",

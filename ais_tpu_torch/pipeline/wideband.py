@@ -69,8 +69,9 @@ from ais_tpu_torch.ops.wire_channelizer import (
 )
 from ais_tpu_torch.pipeline.host import (
     PacketDeduper,
-    decode_wire_records,
     deframe_records,
+    deframe_wire_records,
+    emit_wire_frames,
     suppress_image_ghosts,
 )
 from ais_tpu_torch.pipeline.receiver import (
@@ -81,6 +82,7 @@ from ais_tpu_torch.pipeline.receiver import (
     required_halo,
 )
 from ais_tpu_torch.pipeline.recover import recover_overflow_packets
+from ais_tpu_torch.utils.profiling import SPANS
 
 log = logging.getLogger("ais_tpu_torch")
 
@@ -385,8 +387,30 @@ def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
     return WireRecords(meta_i, meta_f.reshape(C, B, K, 3), packed), dropped
 
 
+def _zero_collect_stats() -> dict:
+    """The wire path's per-part seconds and counts (`collect_stats`)."""
+    return {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0, "dispatch_s": 0.0,
+            "unpack_s": 0.0, "deframe_s": 0.0, "emit_s": 0.0, "recover_s": 0.0, "lanes": 0,
+            "frames": 0}
+
+
 class WidebandReceiver:
-    """Streaming receiver on one device (see the module docstring)."""
+    """Streaming receiver on one device (see the module docstring).
+
+    The wire path keeps `collect_stats` (seconds and counts summed over
+    steps until `reset_collect_stats`): exec_s, fetch_s and host_s, the
+    parts of `collect` (the wait for the device result, the copy to the
+    host, the host back half); dispatch_s, the host enqueueing the device
+    program (`dispatch_wire`); within the back half, unpack_s (the fetch
+    unpacked, the overflowed blocks found), deframe_s (the batched
+    deframe), emit_s (packets, dedup admission, the sort, image-ghost
+    suppression) and recover_s (overflow recovery: the step's samples
+    from its wire bytes, `_recover`, the merge); lanes (valid lanes
+    shipped to the host) and frames (frames the deframer returned, before
+    dedup); steps.  Each part is two `time.perf_counter_ns()` readings a
+    step, which also stamp its span (`rx.<part>`) in
+    `utils/profiling.SPANS` when that log is on.  The attribute
+    `recover_s` is `_recover`'s seconds over the receiver's life."""
 
     def __init__(self, cfg: WidebandConfig = WidebandConfig(), n_in: int | None = None,
                  *, device="cuda", constants: ReceiverConstants | None = None):
@@ -418,7 +442,7 @@ class WidebandReceiver:
         self.overflow_blocks = 0
         self.recover_s = 0.0
         self._recover_demods: dict = {}
-        self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
+        self.collect_stats = _zero_collect_stats()
         # (exec + fetch seconds, host seconds) of the last `collect`.
         self.last_collect_s = (0.0, 0.0)
 
@@ -513,24 +537,36 @@ class WidebandReceiver:
         if raw_u8.size != want:
             raise ValueError(
                 f"{fmt} wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
-        self.prepare(fmt)
         at = self._pos if pos is None else int(pos)
-        host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
-        raw = host.to(self.device, non_blocking=True)
-        ph = torch.from_numpy(self._phase0s(at)).to(self.device)
+        with SPANS.span("rx.stage", at):
+            self.prepare(fmt)
+            host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
+            raw = host.to(self.device, non_blocking=True)
+            ph = torch.from_numpy(self._phase0s(at)).to(self.device)
         if pos is None:
             self._pos += self.step_raw
         return raw, ph, at, fmt, raw_u8
 
     def dispatch_wire(self, staged):
         """Enqueue the device program on a staged step; returns a handle
-        for `collect` (on a CUDA device the work runs asynchronously)."""
+        for `collect` (on a CUDA device the work runs asynchronously, and
+        `dispatch_s` is the host's enqueue)."""
         raw, ph, at, fmt, raw_u8 = staged
-        flat = self.pack_records(self.wire_records(raw, ph, fmt))
+        t0 = time.perf_counter_ns()
+        span = SPANS.begin("rx.dispatch", at, t0)
+        with SPANS.span("rx.dispatch.channelize", at):
+            chans = self.wire_channels(raw, ph, fmt)
+        with SPANS.span("rx.dispatch.demod", at):
+            rec = self.demod_channels(chans)
+        with SPANS.span("rx.dispatch.pack", at):
+            flat = self.pack_records(rec)
         done = None
         if flat.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(flat.device))
+        t1 = time.perf_counter_ns()
+        SPANS.end(span, t1)
+        self.collect_stats["dispatch_s"] += (t1 - t0) * 1e-9
         return flat, done, at // self.cfg.decimation, raw_u8, fmt, at
 
     def submit_wire(self, raw_u8: np.ndarray, fmt: str = "ci8", pos: int | None = None):
@@ -548,8 +584,11 @@ class WidebandReceiver:
     def decode_fetched(self, fetched) -> list:
         """Host back half: unpack, deframe, dedup, then recover the
         blocks whose burst table or lane directory overflowed from the
-        step's wire bytes (with overflow_recovery on)."""
+        step's wire bytes (with overflow_recovery on); each part timed
+        into `collect_stats`."""
         flat_np, chan_start, raw_u8, fmt, at = fetched
+        st = self.collect_stats
+        t0 = time.perf_counter_ns()
         _, n_sym = burst_table_geometry(self.demod_cfg)
         n_pack = -(-n_sym // 8)
         K = self.demod_cfg.max_bursts_per_block
@@ -562,19 +601,42 @@ class WidebandReceiver:
         if dropped and not self.cfg.overflow_recovery:
             log.warning("compact_lanes=%d dropped valid lanes in %d block(s) and "
                         "overflow_recovery is off", self.cfg.compact_lanes, len(dropped))
-        packets = decode_wire_records(
-            rec_np, n_sym, chan_start, self.core_len,
+        t1 = time.perf_counter_ns()
+        lanes, triples = deframe_wire_records(rec_np, n_sym, chan_start, self.core_len,
+                                              self.cfg.deframer)
+        t2 = time.perf_counter_ns()
+        packets = emit_wire_frames(
+            rec_np, lanes, triples, chan_start, self.core_len,
             designators=self.cfg.designators, dedupers=self._dedupers,
-            deframer=self.cfg.deframer, samples_per_symbol=self.cfg.sps)
-        if over and self.cfg.overflow_recovery:
+            samples_per_symbol=self.cfg.sps)
+        t3 = t4 = time.perf_counter_ns()
+        recovered = bool(over) and self.cfg.overflow_recovery
+        if recovered:
             # The step's samples from its wire bytes: the device decoders
             # on a CPU tensor.
             host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
             iq_raw = iq_from_bytes(host, fmt, self.n_in).numpy()
             packets.extend(self._recover(iq_raw, at, over))
             packets.sort(key=lambda p: p.abs_sample)
+            t4 = time.perf_counter_ns()
         if self.cfg.image_reject:
             packets = suppress_image_ghosts(packets)
+        t5 = time.perf_counter_ns()
+        st["unpack_s"] += (t1 - t0) * 1e-9
+        st["deframe_s"] += (t2 - t1) * 1e-9
+        st["emit_s"] += (t3 - t2 + t5 - t4) * 1e-9
+        st["recover_s"] += (t4 - t3) * 1e-9
+        st["lanes"] += int(lanes.size)
+        st["frames"] += len(triples)
+        if SPANS.on:
+            SPANS.add("rx.host.unpack", at, t0, t1)
+            SPANS.add("rx.host.deframe", at, t1, t2)
+            if recovered:  # emit, recovery, then the ghosts (emit's)
+                SPANS.add("rx.host.emit", at, t2, t3)
+                SPANS.add("rx.host.recover", at, t3, t4)
+                SPANS.add("rx.host.emit", at, t4, t5)
+            else:
+                SPANS.add("rx.host.emit", at, t2, t5)
         return packets
 
     def _overflowed(self, n_det: np.ndarray, dropped=()) -> list:
@@ -616,19 +678,27 @@ class WidebandReceiver:
         `collect_stats` accumulates exec_s (wait for the device result),
         fetch_s (device-to-host copy) and host_s (the host back half);
         `last_collect_s` is this call's (exec + fetch, host) seconds."""
-        t0 = time.perf_counter()
+        at = handle[5]
+        t0 = time.perf_counter_ns()
         if handle[1] is not None:
             handle[1].synchronize()
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         fetched = self.fetch_wire(handle)
-        t2 = time.perf_counter()
-        packets = self.decode_fetched(fetched)
-        t3 = time.perf_counter()
-        self.last_collect_s = (t2 - t0, t3 - t2)
+        t2 = time.perf_counter_ns()
+        span = SPANS.begin("rx.host", at, t2)
+        try:
+            packets = self.decode_fetched(fetched)
+        finally:
+            t3 = time.perf_counter_ns()
+            SPANS.end(span, t3)
+        SPANS.add("rx.wait", at, t0, t1)
+        SPANS.add("rx.fetch", at, t1, t2)
+        exec_s, fetch_s, host_s = (t1 - t0) * 1e-9, (t2 - t1) * 1e-9, (t3 - t2) * 1e-9
+        self.last_collect_s = (exec_s + fetch_s, host_s)
         st = self.collect_stats
-        st["exec_s"] += t1 - t0
-        st["fetch_s"] += t2 - t1
-        st["host_s"] += t3 - t2
+        st["exec_s"] += exec_s
+        st["fetch_s"] += fetch_s
+        st["host_s"] += host_s
         st["steps"] += 1
         return packets
 
@@ -703,7 +773,7 @@ class WidebandReceiver:
         self._dedupers = [PacketDeduper() for _ in self.cfg.offsets_hz]
 
     def reset_collect_stats(self) -> None:
-        self.collect_stats = {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0}
+        self.collect_stats = _zero_collect_stats()
 
     # -- checkpoint / resume: the reference's state dict -----------------
 

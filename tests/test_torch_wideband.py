@@ -101,6 +101,50 @@ def test_slice_packets_identical(run):
     assert rx.overflow_blocks == 0
 
 
+@pytest.mark.parametrize("deframer", ["batch", "per_lane", "numpy"])
+def test_host_half_parts_give_the_references_packets(run, monkeypatch, deframer):
+    """The port's back half in its two timed parts, `deframe_wire_records`
+    then `emit_wire_frames`, against the reference's `decode_wire_records`
+    on the same fetched records of both steps, each side with its own
+    dedupers carried across the steps as the receivers carry them:
+    through the native batched deframe, lane by lane with the native
+    burst deframer, and lane by lane in numpy."""
+    from ais_tpu import native as ref_native
+    from ais_tpu.pipeline import host as ref_host
+    from ais_tpu_torch import native as port_native
+    from ais_tpu_torch.pipeline import host as port_host
+
+    rx = tw.WidebandReceiver(run["pcfg"], n_in=run["n_in"], device="cpu")
+    fetched = []
+    rx.decode_fetched = lambda f: fetched.append(f) or []
+    for wire in run["wires"]:
+        rx.decode_wire(wire, "cr1")
+    assert port_host.native_available() and ref_native.available()
+    if deframer != "batch":
+        monkeypatch.setattr(port_host, "native_available", lambda: False)
+    if deframer == "numpy":
+        monkeypatch.setattr(port_native, "available", lambda: False)
+        monkeypatch.setattr(ref_native, "available", lambda: False)
+    _, n_sym = tw.burst_table_geometry(rx.demod_cfg)
+    designators = rx.cfg.designators
+    port_dd = [port_host.PacketDeduper() for _ in designators]
+    ref_dd = [ref_host.PacketDeduper() for _ in designators]
+    n_packets = 0
+    for flat_np, chan_start, *_ in fetched:
+        rec, _ = tw.unpack_wire_compact(flat_np, rx.n_chan, rx.n_blocks,
+                                        rx.demod_cfg.max_bursts_per_block, -(-n_sym // 8))
+        lanes, triples = port_host.deframe_wire_records(rec, n_sym, chan_start, rx.core_len,
+                                                        rx.cfg.deframer)
+        got = port_host.emit_wire_frames(rec, lanes, triples, chan_start, rx.core_len,
+                                         designators, port_dd, rx.cfg.sps)
+        want = ref_host.decode_wire_records(rec, n_sym, chan_start, rx.core_len, designators,
+                                            ref_dd, rx.cfg.deframer, rx.cfg.sps)
+        assert [(p.payload, p.abs_sample, p.designator, p.nmea) for p in got] == [
+            (p.payload, p.abs_sample, p.designator, p.nmea) for p in want]
+        n_packets += len(got)
+    assert n_packets >= 4
+
+
 def test_slice_burst_records(run):
     """Integer fields, the AFC table and bits exactly; centre to 1e-3,
     phase to 2e-3 rad, |corr|^2 to 1e-3 and RSSI to 1e-4 relative (the
