@@ -17,6 +17,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -126,6 +127,25 @@ def load():
         ctypes.c_int32,                   # max_frames
     ]
     lib.hdlc_deframe_packed_batch.restype = ctypes.c_int32
+    lib.hdlc_deframe_rows.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),   # rows (n_rows, row_bytes)
+        ctypes.c_int32,                   # n_rows
+        ctypes.c_int32,                   # row_bytes
+        ctypes.c_int32,                   # plane_offset
+        ctypes.c_int32,                   # n_sym
+        ctypes.POINTER(ctypes.c_int32),   # first
+        ctypes.POINTER(ctypes.c_int32),   # count
+        ctypes.c_int32,                   # min_len
+        ctypes.c_int32,                   # max_len
+        ctypes.POINTER(ctypes.c_uint8),   # payload_out
+        ctypes.c_int64,                   # payload_capacity
+        ctypes.POINTER(ctypes.c_int64),   # frame_offsets
+        ctypes.POINTER(ctypes.c_int32),   # frame_lens
+        ctypes.POINTER(ctypes.c_int64),   # frame_starts
+        ctypes.POINTER(ctypes.c_int32),   # frame_row
+        ctypes.c_int32,                   # max_frames
+    ]
+    lib.hdlc_deframe_rows.restype = ctypes.c_int32
     _lib = lib
     return _lib
 
@@ -333,3 +353,83 @@ def hdlc_deframe_packed_batch(
         )
         off += lens[i]
     return out
+
+
+class RowFrames(NamedTuple):
+    """Frames of `hdlc_deframe_rows`, frame i's payload
+    `payload[offsets[i]: offsets[i] + lens[i]]`."""
+
+    payload: np.ndarray  # uint8, the payloads back to back
+    offsets: np.ndarray  # (n,) int64
+    lens: np.ndarray     # (n,) int32
+    starts: np.ndarray   # (n,) int64 start bit, counted from the run's first
+    rows: np.ndarray     # (n,) int32 row of each frame
+
+
+def row_frame_buffers(max_frames: int, max_len: int = 64) -> RowFrames:
+    """Output arrays for `hdlc_deframe_rows`, room for `max_frames`
+    frames of up to `max_len` payload octets (uninitialised: the call
+    writes what it returns)."""
+    return RowFrames(np.empty(max_frames * (max_len + 2), np.uint8),
+                     np.empty(max_frames, np.int64), np.empty(max_frames, np.int32),
+                     np.empty(max_frames, np.int64), np.empty(max_frames, np.int32))
+
+
+def hdlc_deframe_rows(
+    rows: np.ndarray,
+    first: np.ndarray,
+    count: np.ndarray,
+    n_sym: int,
+    plane_offset: int,
+    min_len: int = 11,
+    max_len: int = 64,
+    out: RowFrames | None = None,
+) -> RowFrames:
+    """Batched HDLC deframe straight from a wire fetch's rows.
+
+    `rows`: (n_rows, row_bytes) uint8, each row's packed bit plane
+    (`n_sym` bits, MSB first) at byte `plane_offset` (24 in a
+    pack_wire_compact row, 0 in pack_wire_flat's bit plane; see
+    pipeline/wideband.py:WireRows); `first`, `count`:
+    each row's bit-valid run.  Gives the frames `hdlc_deframe_packed_batch`
+    gives on the dense planes of the same lanes, as arrays (views of
+    `out`, which `row_frame_buffers` makes; by default room for
+    8 * n_rows + 64 frames)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    first = np.ascontiguousarray(first, dtype=np.int32)
+    count = np.ascontiguousarray(count, dtype=np.int32)
+    n_rows, row_bytes = rows.shape
+    if first.shape != (n_rows,) or count.shape != (n_rows,):
+        raise ValueError(f"first {first.shape} / count {count.shape} for {n_rows} rows")
+    if out is None:
+        out = row_frame_buffers(8 * n_rows + 64, max_len)
+    max_frames = out.lens.size
+    if not out.offsets.size == out.starts.size == out.rows.size == max_frames:
+        raise ValueError("row_frame_buffers' arrays must hold the same number of frames")
+    n = lib.hdlc_deframe_rows(
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        n_rows,
+        row_bytes,
+        plane_offset,
+        n_sym,
+        first.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        count.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        min_len,
+        max_len,
+        out.payload.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        out.payload.size,
+        out.offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        out.lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out.starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        out.rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        max_frames,
+    )
+    if n < 0:
+        raise ValueError(
+            f"rows of {row_bytes} B cannot hold n_sym={n_sym} bits at byte {plane_offset}, "
+            f"or n_sym exceeds the native bit-buffer capacity")
+    _warn_if_capped(n, max_frames, "hdlc_deframe_rows")
+    return RowFrames(out.payload, out.offsets[:n], out.lens[:n], out.starts[:n], out.rows[:n])

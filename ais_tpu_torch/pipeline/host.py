@@ -5,10 +5,14 @@ Port of `ais_tpu/pipeline/host.py` (the wire path's
 `deframe_wire_records` and `emit_wire_frames`; the complex-IQ path's
 per-block `decode_block_records`, over a block axis `deframe_records`), in numpy (it
 runs on the host after the device-to-host fetch, and the reference's
-module cannot be imported without jax).  All valid bursts of a fetch
-deframe in one native call (`ais_tpu_torch.native.hdlc_deframe_packed_batch`)
-when the native library builds; otherwise each burst goes through the
-numpy deframer (`ais_tpu_torch.decode.deframe`).
+module cannot be imported without jax).  The receiver deframes the
+valid lanes' rows of a fetch in one native call
+(`ais_tpu_torch.native.hdlc_deframe_rows`), whose frames `emit_row_frames`
+makes into packets as `emit_wire_frames` does; without the native library
+it unpacks the dense records, and each burst goes through the numpy
+deframer (`ais_tpu_torch.decode.deframe`) in `deframe_wire_records`, which
+otherwise deframes them in one call of the dense planes
+(`native.hdlc_deframe_packed_batch`).
 """
 
 from __future__ import annotations
@@ -125,6 +129,17 @@ def _emit_packets(frames, win_start: int, block_start_sample: int, mag: float,
             out.append(packet)
 
 
+def warn_table_overflow(n_det: np.ndarray, K: int, chan_start: int, core_len: int) -> None:
+    """Log each block of a fetch whose burst table overflowed (`n_det`
+    (C, B) bursts detected, K kept)."""
+    for c, b in zip(*np.nonzero(n_det > K)):
+        log.warning(
+            "burst table overflow: %d peaks detected in block at sample %d "
+            "but max_bursts_per_block=%d", int(n_det[c, b]),
+            chan_start + int(b) * core_len, K,
+        )
+
+
 def deframe_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
                          deframer: DeframerConfig = DeframerConfig()) -> tuple:
     """The frames of a host WireRecords fetch (`pipeline/wideband.py`):
@@ -135,15 +150,7 @@ def deframe_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
     meta_i = np.asarray(wire.meta_i)  # (C, B, K, 6)
     packed = np.asarray(wire.packed)  # (C, B, K, 2, n_pack)
     C, B, K, _ = meta_i.shape
-
-    n_det = meta_i[:, :, 0, 3]
-    for c, b in zip(*np.nonzero(n_det > K)):
-        log.warning(
-            "burst table overflow: %d peaks detected in block at sample %d "
-            "but max_bursts_per_block=%d", int(n_det[c, b]),
-            chan_start + int(b) * core_len, K,
-        )
-
+    warn_table_overflow(meta_i[:, :, 0, 3], K, chan_start, core_len)
     lanes = np.nonzero(meta_i[..., 2].reshape(-1))[0].astype(np.int32)
     if lanes.size == 0:
         return lanes, []
@@ -170,6 +177,23 @@ def deframe_wire_records(wire, n_sym: int, chan_start: int, core_len: int,
     return lanes, triples
 
 
+def _emit_lane_frames(frames, chan_start: int, core_len: int, B: int, K: int, designators,
+                      dedupers, samples_per_symbol: float) -> list:
+    """Packets of `frames`, (payload, start_bit, lane, win_start, mag,
+    freq_hz, rssi) in lane order: each anchored and dedup-admitted in
+    that order; the result is sorted by abs_sample."""
+    packets: list[DecodedPacket] = []
+    for payload, start_bit, lane, win_start, mag, freq_hz, rssi in frames:
+        c, rem = divmod(lane, B * K)
+        _emit_packets(
+            [(payload, start_bit)], win_start, chan_start + rem // K * core_len, mag, freq_hz,
+            designators[c], dedupers[c] if dedupers is not None else None, samples_per_symbol,
+            packets, rssi=rssi,
+        )
+    packets.sort(key=lambda p: p.abs_sample)
+    return packets
+
+
 def emit_wire_frames(wire, lanes, triples, chan_start: int, core_len: int,
                      designators=("A", "B"), dedupers=None,
                      samples_per_symbol: float = 5.0) -> list:
@@ -179,18 +203,35 @@ def emit_wire_frames(wire, lanes, triples, chan_start: int, core_len: int,
     meta_i = np.asarray(wire.meta_i)
     meta_f = np.asarray(wire.meta_f)  # (C, B, K, 3)
     _, B, K, _ = meta_i.shape
-    packets: list[DecodedPacket] = []
-    for payload, start_bit, li in triples:
-        c, rem = divmod(int(lanes[li]), B * K)
-        b, k = divmod(rem, K)
-        _emit_packets(
-            [(payload, start_bit)], int(meta_i[c, b, k, 1]), chan_start + b * core_len,
-            float(meta_f[c, b, k, 0]), float(meta_f[c, b, k, 1]), designators[c],
-            dedupers[c] if dedupers is not None else None, samples_per_symbol,
-            packets, rssi=float(meta_f[c, b, k, 2]),
-        )
-    packets.sort(key=lambda p: p.abs_sample)
-    return packets
+    mi, mf = meta_i.reshape(-1, 6), meta_f.reshape(-1, 3)
+
+    def frames():
+        for payload, start_bit, li in triples:
+            lane = int(lanes[li])
+            yield (payload, start_bit, lane, int(mi[lane, 1]), float(mf[lane, 0]),
+                   float(mf[lane, 1]), float(mf[lane, 2]))
+
+    return _emit_lane_frames(frames(), chan_start, core_len, B, K, designators, dedupers,
+                             samples_per_symbol)
+
+
+def emit_row_frames(rows, frames, chan_start: int, core_len: int, B: int, K: int,
+                    designators=("A", "B"), dedupers=None,
+                    samples_per_symbol: float = 5.0) -> list:
+    """Packets of the frames `native.hdlc_deframe_rows` found in a fetch's
+    rows (`pipeline/wideband.py:WireRows`), as
+    `emit_wire_frames` makes them: the frame arrays and the rows' fields
+    read per frame, each payload's bytes made with its packet."""
+    r = frames.rows
+    end = int(frames.offsets[-1] + frames.lens[-1]) if r.size else 0
+    payload = frames.payload[:end].tobytes()
+    mf = rows.meta_f[r]
+    return _emit_lane_frames(
+        ((payload[o: o + n], s, lane, w, m, f, rssi) for o, n, s, lane, w, m, f, rssi in zip(
+            frames.offsets.tolist(), frames.lens.tolist(), frames.starts.tolist(),
+            rows.lanes[r].tolist(), rows.win_start[r].tolist(), mf[:, 0].tolist(),
+            mf[:, 1].tolist(), mf[:, 2].tolist())),
+        chan_start, core_len, B, K, designators, dedupers, samples_per_symbol)
 
 
 def decode_wire_records(wire, n_sym: int, chan_start: int, core_len: int,

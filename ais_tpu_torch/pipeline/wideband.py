@@ -21,9 +21,12 @@ or K4's full-length table (ops/channelizer.py); cr1 then goes through
 decode and K5, as for any geometry K1 does not take.
 
 The wire path packs the records into ONE uint8 buffer
-(`pack_wire_compact`, or `pack_wire_flat` with compact_lanes=0) and the
-host unpacks it and deframes every burst in one native call; the
-complex path fetches the burst records and deframes block by block
+(`pack_wire_compact`, or `pack_wire_flat` with compact_lanes=0); the host
+takes the valid lanes' rows from it (`parse_wire_compact`, read in place,
+or `parse_wire_flat`) and deframes them in one native call
+(`native.hdlc_deframe_rows`); where the native library is missing it
+unpacks the buffer into the dense records and deframes them in numpy
+(`unpack_wire_compact`, `unpack_wire_flat`); the complex path fetches the burst records and deframes block by block
 (`decode_block_records`).  Both deduplicate and drop I/Q-image ghosts.
 A block whose burst table or lane directory overflowed is demodulated
 again with a larger table (pipeline/recover.py).
@@ -48,6 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ais_tpu_torch import native
 from ais_tpu_torch.core.params import AIS_BIT_RATE, DeframerConfig, DemodConfig
 from ais_tpu_torch.ops.channelizer import Channelizer
 from ais_tpu_torch.ops.convert import (
@@ -71,8 +75,10 @@ from ais_tpu_torch.pipeline.host import (
     PacketDeduper,
     deframe_records,
     deframe_wire_records,
+    emit_row_frames,
     emit_wire_frames,
     suppress_image_ghosts,
+    warn_table_overflow,
 )
 from ais_tpu_torch.pipeline.receiver import (
     BurstDemod,
@@ -339,6 +345,37 @@ def pack_wire_compact(rec: BurstRecords, fftlen: int, l_max: int) -> torch.Tenso
     ])
 
 
+def _compact_parts(buf: np.ndarray, C: int, B: int, K: int, n_pack: int):
+    """The parts of a `pack_wire_compact` buffer, as views of it:
+    (total_valid, l_max, n_det (C, B), n_valid_blk (C, B), directory
+    (l_max,), rows (l_max, row_bytes))."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    total_valid, l_max, n_lanes, row_bytes = (int(v) for v in buf[:16].view("<i4"))
+    if n_lanes != C * B * K or row_bytes != 24 + n_pack:
+        raise ValueError(
+            f"compact wire geometry mismatch: buffer says {n_lanes} lanes / "
+            f"{row_bytes} B rows, receiver expects {C * B * K} / {24 + n_pack}")
+    off = 16
+    n_det = buf[off: off + 4 * C * B].view("<i4").reshape(C, B)
+    off += 4 * C * B
+    n_valid_blk = buf[off: off + 4 * C * B].view("<i4").reshape(C, B)
+    off += 4 * C * B
+    dirs = buf[off: off + 4 * l_max].view("<i4")
+    off += 4 * l_max
+    rows = buf[off: off + l_max * row_bytes].reshape(l_max, row_bytes)
+    return total_valid, l_max, n_det, n_valid_blk, dirs, rows
+
+
+def _dropped_blocks(total_valid: int, l_max: int, shipped: np.ndarray, n_valid_blk: np.ndarray,
+                    n_det: np.ndarray) -> list:
+    """(channel, block, n_detected) of the blocks whose valid lanes did
+    not all fit the directory; `shipped` (C, B) counts the lanes it holds."""
+    if total_valid <= l_max:
+        return []
+    return [(int(c), int(b), int(max(n_det[c, b], n_valid_blk[c, b])))
+            for c, b in zip(*np.nonzero(shipped < n_valid_blk))]
+
+
 def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
                         n_pack: int) -> tuple[WireRecords, list]:
     """Host inverse of `pack_wire_compact`.
@@ -347,22 +384,7 @@ def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
     (invalid lanes zero) and returns (records, dropped): `dropped` lists
     (channel, block, n_detected) for blocks whose valid lanes did not
     fit the directory."""
-    buf = np.asarray(buf, dtype=np.uint8)
-    total_valid, l_max, n_lanes, row_bytes = (
-        int(v) for v in np.frombuffer(buf[:16].tobytes(), "<i4"))
-    if n_lanes != C * B * K or row_bytes != 24 + n_pack:
-        raise ValueError(
-            f"compact wire geometry mismatch: buffer says {n_lanes} lanes / "
-            f"{row_bytes} B rows, receiver expects {C * B * K} / {24 + n_pack}")
-    off = 16
-    n_det = np.frombuffer(buf[off: off + 4 * C * B].tobytes(), "<i4").reshape(C, B)
-    off += 4 * C * B
-    n_valid_blk = np.frombuffer(buf[off: off + 4 * C * B].tobytes(), "<i4").reshape(C, B)
-    off += 4 * C * B
-    dirs = np.frombuffer(buf[off: off + 4 * l_max].tobytes(), "<i4")
-    off += 4 * l_max
-    rows = buf[off: off + l_max * row_bytes].reshape(l_max, row_bytes)
-
+    total_valid, l_max, n_det, n_valid_blk, dirs, rows = _compact_parts(buf, C, B, K, n_pack)
     nv = min(total_valid, l_max)
     d, r = dirs[:nv], rows[:nv]
     meta_i = np.zeros((C * B * K, 6), np.int32)
@@ -379,19 +401,60 @@ def unpack_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
     meta_i[..., 3] = n_det[..., None]
     packed = np.concatenate(
         [bits.reshape(C, B, K, 1, n_pack), _bit_valid_plane(meta_i, n_pack)], axis=-2)
-    dropped = []
-    if total_valid > l_max:
-        got = meta_i[..., 2].sum(axis=-1)
-        for c, b in zip(*np.nonzero(got < n_valid_blk)):
-            dropped.append((int(c), int(b), int(max(n_det[c, b], n_valid_blk[c, b]))))
+    dropped = _dropped_blocks(total_valid, l_max, meta_i[..., 2].sum(axis=-1), n_valid_blk,
+                              n_det)
     return WireRecords(meta_i, meta_f.reshape(C, B, K, 3), packed), dropped
+
+
+class WireRows(NamedTuple):
+    """The valid lanes of a wire fetch, one entry a row, rows in lane
+    order (`parse_wire_compact`, `parse_wire_flat`)."""
+
+    n_det: np.ndarray      # (C, B) int32 bursts detected a block
+    lanes: np.ndarray      # (nv,) int32 flat (channel, block, burst) lane ids
+    rows: np.ndarray       # (nv, row_bytes) uint8, the packed bits at plane_offset
+    plane_offset: int      # byte of each row where its packed bits start
+    win_start: np.ndarray  # (nv,) int32
+    first: np.ndarray      # (nv,) bit-valid run
+    count: np.ndarray      # (nv,)
+    meta_f: np.ndarray     # (nv, 3) float32 corr mag^2, freq_est_hz, rssi
+
+
+def parse_wire_compact(buf: np.ndarray, C: int, B: int, K: int,
+                       n_pack: int) -> tuple[WireRows, list]:
+    """The shipped lanes of a `pack_wire_compact` buffer, without the
+    dense layout: (rows, dropped), `dropped` as `unpack_wire_compact`
+    gives it.  Every field is a view of the fetched bytes."""
+    total_valid, l_max, n_det, n_valid_blk, dirs, rows = _compact_parts(buf, C, B, K, n_pack)
+    nv = min(total_valid, l_max)
+    rows = rows[:nv]
+    lanes = dirs[:nv]
+    shipped = np.bincount(lanes // K, minlength=C * B).reshape(C, B)
+    parsed = WireRows(n_det, lanes, rows, 24, rows[:, 4:8].view("<i4")[:, 0],
+                      rows[:, 8:10].view("<u2")[:, 0], rows[:, 10:12].view("<u2")[:, 0],
+                      rows[:, 12:24].view("<f4"))
+    return parsed, _dropped_blocks(total_valid, l_max, shipped, n_valid_blk, n_det)
+
+
+def parse_wire_flat(buf: np.ndarray, C: int, B: int, K: int, n_pack: int) -> WireRows:
+    """The valid lanes of a `pack_wire_flat` buffer: each lane's metadata
+    and its packed bit plane, taken out of the buffer (no bit-valid plane)."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    n = C * B * K
+    meta_i = buf[: 24 * n].view("<i4").reshape(n, 6)
+    meta_f = buf[24 * n: 36 * n].view("<f4").reshape(n, 3)
+    bits = buf[36 * n:].reshape(n, n_pack)
+    lanes = np.flatnonzero(meta_i[:, 2]).astype(np.int32)
+    m = meta_i[lanes]
+    return WireRows(meta_i[:, 3].reshape(C, B, K)[..., 0], lanes, bits[lanes], 0, m[:, 1],
+                    m[:, 4], m[:, 5], meta_f[lanes])
 
 
 def _zero_collect_stats() -> dict:
     """The wire path's per-part seconds and counts (`collect_stats`)."""
     return {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0, "dispatch_s": 0.0,
             "unpack_s": 0.0, "deframe_s": 0.0, "emit_s": 0.0, "recover_s": 0.0, "lanes": 0,
-            "frames": 0}
+            "frames": 0, "row_steps": 0}
 
 
 class WidebandReceiver:
@@ -402,12 +465,13 @@ class WidebandReceiver:
     parts of `collect` (the wait for the device result, the copy to the
     host, the host back half); dispatch_s, the host enqueueing the device
     program (`dispatch_wire`); within the back half, unpack_s (the fetch
-    unpacked, the overflowed blocks found), deframe_s (the batched
-    deframe), emit_s (packets, dedup admission, the sort, image-ghost
+    parsed, or unpacked, the overflowed blocks found), deframe_s (the
+    batched deframe), emit_s (packets, dedup admission, the sort, image-ghost
     suppression) and recover_s (overflow recovery: the step's samples
     from its wire bytes, `_recover`, the merge); lanes (valid lanes
     shipped to the host) and frames (frames the deframer returned, before
-    dedup); steps.  Each part is two `time.perf_counter_ns()` readings a
+    dedup); steps, and row_steps (the steps whose compact fetch was read
+    in place).  Each part is two `time.perf_counter_ns()` readings a
     step, which also stamp its span (`rx.<part>`) in
     `utils/profiling.SPANS` when that log is on.  The attribute
     `recover_s` is `_recover`'s seconds over the receiver's life."""
@@ -443,6 +507,8 @@ class WidebandReceiver:
         self.recover_s = 0.0
         self._recover_demods: dict = {}
         self.collect_stats = _zero_collect_stats()
+        self._row_frames = None  # `hdlc_deframe_rows` outputs, made at first use
+        self._warned_dense = False  # the missing native library logged once
         # (exec + fetch seconds, host seconds) of the last `collect`.
         self.last_collect_s = (0.0, 0.0)
 
@@ -585,30 +651,55 @@ class WidebandReceiver:
         """Host back half: unpack, deframe, dedup, then recover the
         blocks whose burst table or lane directory overflowed from the
         step's wire bytes (with overflow_recovery on); each part timed
-        into `collect_stats`."""
+        into `collect_stats`.  The valid lanes' rows are deframed by one
+        native call (a compact fetch read in place: a `row_steps` step);
+        a host without the native library unpacks the fetch into the
+        dense records and deframes them in numpy."""
         flat_np, chan_start, raw_u8, fmt, at = fetched
         st = self.collect_stats
         t0 = time.perf_counter_ns()
         _, n_sym = burst_table_geometry(self.demod_cfg)
         n_pack = -(-n_sym // 8)
         K = self.demod_cfg.max_bursts_per_block
+        on_rows = native.available()
         dropped: list = []
-        if self.cfg.compact_lanes:
+        if on_rows and self.cfg.compact_lanes:
+            rows, dropped = parse_wire_compact(flat_np, self.n_chan, self.n_blocks, K, n_pack)
+        elif on_rows:
+            rows = parse_wire_flat(flat_np, self.n_chan, self.n_blocks, K, n_pack)
+        elif self.cfg.compact_lanes:
             rec_np, dropped = unpack_wire_compact(flat_np, self.n_chan, self.n_blocks, K, n_pack)
         else:
             rec_np = unpack_wire_flat(flat_np, self.n_chan, self.n_blocks, K, n_pack)
-        over = self._overflowed(rec_np.meta_i[:, :, 0, 3], dropped)
+        if not on_rows and not self._warned_dense:
+            self._warned_dense = True
+            log.warning("native library unavailable: each wire fetch is unpacked into the "
+                        "dense records and deframed in numpy, a slower host back half")
+        n_det = rows.n_det if on_rows else rec_np.meta_i[:, :, 0, 3]
+        over = self._overflowed(n_det, dropped)
         if dropped and not self.cfg.overflow_recovery:
             log.warning("compact_lanes=%d dropped valid lanes in %d block(s) and "
                         "overflow_recovery is off", self.cfg.compact_lanes, len(dropped))
         t1 = time.perf_counter_ns()
-        lanes, triples = deframe_wire_records(rec_np, n_sym, chan_start, self.core_len,
-                                              self.cfg.deframer)
-        t2 = time.perf_counter_ns()
-        packets = emit_wire_frames(
-            rec_np, lanes, triples, chan_start, self.core_len,
-            designators=self.cfg.designators, dedupers=self._dedupers,
-            samples_per_symbol=self.cfg.sps)
+        emit_kw = dict(designators=self.cfg.designators, dedupers=self._dedupers,
+                       samples_per_symbol=self.cfg.sps)
+        if on_rows:
+            warn_table_overflow(n_det, K, chan_start, self.core_len)
+            dfr = self.cfg.deframer
+            frames = native.hdlc_deframe_rows(
+                rows.rows, rows.first, rows.count, n_sym, rows.plane_offset,
+                dfr.min_length_bytes, dfr.max_length_bytes, out=self._row_frame_buffers())
+            n_lanes, n_frames = rows.lanes.size, frames.rows.size
+            t2 = time.perf_counter_ns()
+            packets = emit_row_frames(rows, frames, chan_start, self.core_len, self.n_blocks, K,
+                                      **emit_kw)
+        else:
+            lanes, triples = deframe_wire_records(rec_np, n_sym, chan_start, self.core_len,
+                                                  self.cfg.deframer)
+            n_lanes, n_frames = lanes.size, len(triples)
+            t2 = time.perf_counter_ns()
+            packets = emit_wire_frames(rec_np, lanes, triples, chan_start, self.core_len,
+                                       **emit_kw)
         t3 = t4 = time.perf_counter_ns()
         recovered = bool(over) and self.cfg.overflow_recovery
         if recovered:
@@ -626,8 +717,9 @@ class WidebandReceiver:
         st["deframe_s"] += (t2 - t1) * 1e-9
         st["emit_s"] += (t3 - t2 + t5 - t4) * 1e-9
         st["recover_s"] += (t4 - t3) * 1e-9
-        st["lanes"] += int(lanes.size)
-        st["frames"] += len(triples)
+        st["lanes"] += int(n_lanes)
+        st["frames"] += int(n_frames)
+        st["row_steps"] += int(on_rows and bool(self.cfg.compact_lanes))
         if SPANS.on:
             SPANS.add("rx.host.unpack", at, t0, t1)
             SPANS.add("rx.host.deframe", at, t1, t2)
@@ -638,6 +730,17 @@ class WidebandReceiver:
             else:
                 SPANS.add("rx.host.emit", at, t2, t5)
         return packets
+
+    def _row_frame_buffers(self) -> native.RowFrames:
+        """The row deframe's outputs, made once: 8 frames for each row a
+        fetch can hold (the directory's lanes, or every lane on the flat
+        layout), and 64 more."""
+        if self._row_frames is None:
+            n_lanes = self.n_chan * self.n_blocks * self.demod_cfg.max_bursts_per_block
+            n_rows = min(self.cfg.compact_lanes or n_lanes, n_lanes)
+            self._row_frames = native.row_frame_buffers(
+                8 * n_rows + 64, self.cfg.deframer.max_length_bytes)
+        return self._row_frames
 
     def _overflowed(self, n_det: np.ndarray, dropped=()) -> list:
         """The step's overflowed blocks as (channel, block, n_detected):

@@ -209,7 +209,7 @@ def test_reset_zeroes_every_key(stream):
     rx, _ = _decode(stream, compact_lanes=1)
     st = rx.collect_stats
     assert set(st) == {"exec_s", "fetch_s", "host_s", "steps", "dispatch_s", *PARTS, "lanes",
-                       "frames"}
+                       "frames", "row_steps"}
     assert all(v > 0 for v in st.values())
     rx.reset_collect_stats()
     assert set(rx.collect_stats) == set(st) and not any(rx.collect_stats.values())

@@ -145,6 +145,178 @@ def test_host_half_parts_give_the_references_packets(run, monkeypatch, deframer)
     assert n_packets >= 4
 
 
+def _fetches(cfg, run) -> list:
+    """What `decode_fetched` is given for each step of the run's stream."""
+    rx = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    fetched = []
+    rx.decode_fetched = lambda f: fetched.append(f) or []
+    for wire in run["wires"]:
+        rx.decode_wire(wire, "cr1")
+    return fetched
+
+
+def _full_key(packets):
+    return [(p.payload, p.abs_sample, p.designator, p.corr_mag, p.freq_est_hz, p.rssi)
+            for p in packets]
+
+
+@pytest.mark.parametrize("case", ["steps", "directory_overflow", "table_overflow"])
+def test_compact_rows_give_the_references_packets(run, monkeypatch, case):
+    """`decode_fetched` reading the compact rows in place: the packets of
+    the reference's `decode_wire_records` on `unpack_wire_compact`'s
+    records (recovery off, image ghosts dropped as the receiver drops
+    them), each side with its dedupers carried across the steps; and,
+    recovery on, the packets, dropped blocks and `overflow_blocks` of the
+    dense path (the native library patched away).  Cases: both steps as
+    fetched; a directory of one lane (total_valid > l_max); a block whose
+    burst table overflowed (n_det > K, written into the fetch)."""
+    from ais_tpu.pipeline import host as ref_host
+    from ais_tpu.pipeline import wideband as ref_wideband
+    from ais_tpu_torch import native as port_native
+
+    cfg = run["pcfg"]._replace(compact_lanes=1) if case == "directory_overflow" else run["pcfg"]
+    fetched = _fetches(cfg, run)
+    K = cfg.demod.max_bursts_per_block
+    if case == "table_overflow":
+        buf = fetched[0][0].copy()
+        buf[16 + 4 * 1: 16 + 4 * 2] = np.frombuffer(np.int32(K + 2).tobytes(), np.uint8)
+        fetched[0] = (buf, *fetched[0][1:])
+    assert port_native.available()
+    rx = tw.WidebandReceiver(cfg._replace(overflow_recovery=False), n_in=run["n_in"],
+                             device="cpu")
+    _, n_sym = tw.burst_table_geometry(rx.demod_cfg)
+    n_pack = -(-n_sym // 8)
+    ref_dd = [ref_host.PacketDeduper() for _ in cfg.designators]
+    n_packets, n_dropped = 0, 0
+    for flat_np, chan_start, *_ in fetched:
+        got = rx.decode_fetched((flat_np, chan_start, *_))
+        rec, dropped = tw.unpack_wire_compact(flat_np, rx.n_chan, rx.n_blocks, K, n_pack)
+        rows, rows_dropped = tw.parse_wire_compact(flat_np, rx.n_chan, rx.n_blocks, K, n_pack)
+        assert rows_dropped == dropped == ref_wideband.unpack_wire_compact(
+            flat_np, rx.n_chan, rx.n_blocks, K, n_pack)[1]
+        np.testing.assert_array_equal(rows.n_det, rec.meta_i[:, :, 0, 3])
+        want = ref_host.suppress_image_ghosts(ref_host.decode_wire_records(
+            rec, n_sym, chan_start, rx.core_len, cfg.designators, ref_dd, cfg.deframer,
+            cfg.sps))
+        assert _key(got) == _key(want)
+        n_packets += len(got)
+        n_dropped += len(dropped)
+    assert rx.collect_stats["row_steps"] == 2
+    assert n_packets >= (2 if case == "directory_overflow" else 3)
+    assert (n_dropped > 0) == (case == "directory_overflow")
+    assert (rx.overflow_blocks > 0) == (case != "steps")
+
+    in_place = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    dense = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    for f in fetched:
+        got = in_place.decode_fetched(f)
+        with monkeypatch.context() as m:
+            m.setattr(port_native, "available", lambda: False)
+            want = dense.decode_fetched(f)
+        assert _full_key(got) == _full_key(want) and got
+    assert in_place.overflow_blocks == dense.overflow_blocks == rx.overflow_blocks
+    assert (in_place.collect_stats["row_steps"], dense.collect_stats["row_steps"]) == (2, 0)
+    for key in ("lanes", "frames"):
+        assert in_place.collect_stats[key] == dense.collect_stats[key] > 0
+
+
+@pytest.mark.parametrize("layout", ["compact", "flat", "no_native"])
+def test_row_steps_counts_the_steps_read_in_place(run, monkeypatch, layout):
+    """`row_steps` equals `steps` when the compact fetch is read in place,
+    and stays 0 on the flat layout and without the native library."""
+    from ais_tpu_torch import native as port_native
+
+    cfg = run["pcfg"]._replace(compact_lanes=0) if layout == "flat" else run["pcfg"]
+    if layout == "no_native":
+        monkeypatch.setattr(port_native, "available", lambda: False)
+    rx = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    got = [rx.decode_wire(wire, "cr1") for wire in run["wires"]]
+    st = rx.collect_stats
+    assert st["steps"] == 2 and st["row_steps"] == (2 if layout == "compact" else 0)
+    assert _key(got[0]) == _key(run["packets0"])
+    rx.reset_collect_stats()
+    assert rx.collect_stats["row_steps"] == 0
+
+
+@pytest.mark.parametrize("case", ["steps", "table_overflow"])
+def test_flat_rows_give_the_references_packets(run, monkeypatch, case):
+    """The flat layout (compact_lanes=0) through the row deframe
+    (`parse_wire_flat`, plane at byte 0): the packets of the reference's
+    `decode_wire_records` on `unpack_wire_flat`'s records (recovery off),
+    dedupers carried across the steps; and, recovery on, the packets,
+    `overflow_blocks`, lanes and frames of the dense path (the native
+    library patched away).  Cases: both steps as fetched; a block whose
+    burst table overflowed (n_det > K written into each of its lanes)."""
+    from ais_tpu.pipeline import host as ref_host
+    from ais_tpu.pipeline import wideband as ref_wideband
+    from ais_tpu_torch import native as port_native
+
+    cfg = run["pcfg"]._replace(compact_lanes=0)
+    fetched = _fetches(cfg, run)
+    K = cfg.demod.max_bursts_per_block
+    if case == "table_overflow":
+        buf = fetched[0][0].copy()
+        for lane in range(K, 2 * K):  # channel 0, block 1
+            at = 4 * (6 * lane + 3)
+            buf[at: at + 4] = np.frombuffer(np.int32(K + 2).tobytes(), np.uint8)
+        fetched[0] = (buf, *fetched[0][1:])
+    assert port_native.available()
+    rx = tw.WidebandReceiver(cfg._replace(overflow_recovery=False), n_in=run["n_in"],
+                             device="cpu")
+    _, n_sym = tw.burst_table_geometry(rx.demod_cfg)
+    n_pack = -(-n_sym // 8)
+    ref_dd = [ref_host.PacketDeduper() for _ in cfg.designators]
+    n_packets = 0
+    for flat_np, chan_start, *_ in fetched:
+        got = rx.decode_fetched((flat_np, chan_start, *_))
+        rec = ref_wideband.unpack_wire_flat(flat_np, rx.n_chan, rx.n_blocks, K, n_pack)
+        want = ref_host.suppress_image_ghosts(ref_host.decode_wire_records(
+            rec, n_sym, chan_start, rx.core_len, cfg.designators, ref_dd, cfg.deframer,
+            cfg.sps))
+        assert _key(got) == _key(want)
+        n_packets += len(got)
+    assert n_packets >= 3
+    assert rx.collect_stats["row_steps"] == 0 and rx.collect_stats["frames"] >= n_packets
+    assert (rx.overflow_blocks > 0) == (case == "table_overflow")
+
+    rows = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    dense = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    for f in fetched:
+        got = rows.decode_fetched(f)
+        with monkeypatch.context() as m:
+            m.setattr(port_native, "available", lambda: False)
+            want = dense.decode_fetched(f)
+        assert _full_key(got) == _full_key(want) and got
+    assert rows.overflow_blocks == dense.overflow_blocks == rx.overflow_blocks
+    for key in ("lanes", "frames"):
+        assert rows.collect_stats[key] == dense.collect_stats[key] > 0
+
+
+@pytest.mark.parametrize("layout", ["compact", "flat"])
+def test_missing_native_library_is_logged_once(run, monkeypatch, caplog, layout):
+    """Without the native library the back half falls back to the dense
+    records and numpy: one warning, at the first fetch, on either layout;
+    none while the library loads."""
+    from ais_tpu_torch import native as port_native
+
+    cfg = run["pcfg"]._replace(compact_lanes=0) if layout == "flat" else run["pcfg"]
+    fetched = _fetches(cfg, run)
+    said = "native library unavailable"
+    rx = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    with caplog.at_level("WARNING", logger="ais_tpu_torch"):
+        for f in fetched:
+            rx.decode_fetched(f)
+    assert said not in caplog.text
+    monkeypatch.setattr(port_native, "available", lambda: False)
+    rx = tw.WidebandReceiver(cfg, n_in=run["n_in"], device="cpu")
+    caplog.clear()
+    with caplog.at_level("WARNING", logger="ais_tpu_torch"):
+        for f in fetched + fetched:
+            rx.decode_fetched(f)
+    assert caplog.text.count(said) == 1
+    assert rx.collect_stats["lanes"] > 0
+
+
 def test_slice_burst_records(run):
     """Integer fields, the AFC table and bits exactly; centre to 1e-3,
     phase to 2e-3 rad, |corr|^2 to 1e-3 and RSSI to 1e-4 relative (the
