@@ -2,8 +2,9 @@
 
 `tiny` is a throwaway checkout: a copy of `portbench/` and
 `BENCHMARK.json`, the program beside them, and cells cut to 3 demod
-blocks on the CPU (`tiny_<wire format>`; the ci1 configuration is the
-tests' own), added as new files and new manifest entries only.
+blocks on the CPU (`tiny_<wire format>`, all on `archive_light`; the
+ci1, ci8 and ci16 configurations are the tests' own), added as new files
+and new manifest entries only.
 `run_cell` runs one of its cells in a child process the way `run.py`
 does, past the look for a card, and returns the exit code, the result
 line and standard error; `run_control` runs `control.py` the same way,
@@ -24,17 +25,47 @@ import pytest
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 TINY = dict(blocks=3, outstanding=2, warm_steps=2, check_outputs=64, check_rows=2)
-CELLS = {"cr1": ("wb2m4_cr1", "archive_light"), "ci1": ("wb2m4_ci1", "archive_light")}
+CELLS = {"cr1": "wb2m4_cr1", "ci1": "wb2m4_ci1", "ci8": "wb2m4_ci8", "ci16": "wb2m4_ci16"}
+
+
+def _variant(name: str, **changes) -> dict:
+    cfg = json.loads((BENCH / "configs" / "wb2m4_cr1.json").read_text())
+    del cfg["cr1_a2"]
+    cfg.update(name=name, **changes)
+    return cfg
 
 
 def ci1_config() -> dict:
     """The receiver of `wb2m4_cr1` on the 1-bit IQ wire (K3), as a later
     cell would add it: a configuration of the tests' own."""
-    cfg = json.loads((BENCH / "configs" / "wb2m4_cr1.json").read_text())
-    del cfg["cr1_a2"]
-    cfg.update(name="wb2m4_ci1", wire_format="ci1", wire_headroom=0.7,
-               kernels=["wire_channelizer_ci1_mma", "matched_filter"])
-    return cfg
+    return _variant("wb2m4_ci1", wire_format="ci1", wire_headroom=0.7,
+                    kernels=["wire_channelizer_ci1_mma", "matched_filter"])
+
+
+def ci8_config() -> dict:
+    """The receiver of `wb2m4_cr1` on the 8-bit IQ wire of an 8-bit SDR
+    (the device's decode, then K5), the capture's peak at 0.9 of full
+    scale: a configuration of the tests' own."""
+    return _variant("wb2m4_ci8", wire_format="ci8", wire_headroom=0.9,
+                    kernels=["channelizer", "matched_filter"])
+
+
+def ci16_config() -> dict:
+    """The same receiver on the 16-bit IQ wire: a configuration of the
+    tests' own."""
+    return _variant("wb2m4_ci16", wire_format="ci16", wire_headroom=0.9,
+                    kernels=["channelizer", "matched_filter"])
+
+
+TEST_CONFIGS = {"wb2m4_ci1": ci1_config, "wb2m4_ci8": ci8_config, "wb2m4_ci16": ci16_config}
+
+
+def tiny_traffic() -> dict:
+    """The traffic of every `tiny_<tag>`: archive_light cut to TINY."""
+    t = json.loads((BENCH / "traffic" / "archive_light.json").read_text())
+    t.update(TINY)
+    return t
+
 
 # Runs a cell on the CPU past run.py's look for a card.
 DRIVER = """\
@@ -51,15 +82,14 @@ def make_checkout(dest: Path) -> Path:
     shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
     (dest / "ais_tpu_torch").symlink_to(ROOT / "ais_tpu_torch")
     manifest = json.loads((dest / "BENCHMARK.json").read_text())
-    (dest / "portbench" / "configs" / "wb2m4_ci1.json").write_text(json.dumps(ci1_config()))
-    manifest["configs"].append({"name": "wb2m4_ci1", "source": "a CPU test",
-                                "file": "portbench/configs/wb2m4_ci1.json", "reduced": [],
-                                "why": "a CPU test"})
-    for tag, (config, traffic) in CELLS.items():
+    for config, make in TEST_CONFIGS.items():
+        (dest / "portbench" / "configs" / f"{config}.json").write_text(json.dumps(make()))
+        manifest["configs"].append({"name": config, "source": "a CPU test",
+                                    "file": f"portbench/configs/{config}.json", "reduced": [],
+                                    "why": "a CPU test"})
+    for tag, config in CELLS.items():
         name = f"tiny_{tag}"
-        t = json.loads((BENCH / "traffic" / f"{traffic}.json").read_text())
-        t.update(TINY)
-        (dest / "portbench" / "traffic" / f"{name}.json").write_text(json.dumps(t))
+        (dest / "portbench" / "traffic" / f"{name}.json").write_text(json.dumps(tiny_traffic()))
         manifest["workloads"].append({"name": name, "config": config, "traffic": name,
                                       "chips": 1, "why": "a CPU test"})
         for metric in manifest["per_layer"]:

@@ -6,8 +6,10 @@ program made except the outputs it judges.
 - `channel_outputs`: the channelizer's outputs at chosen indices, from
   the definition: y[c, m] = e^{j phi_c} sum_k h[k] s[mD + k]
   e^{-j 2 pi f_c (mD + k) / fs}, phi_c = -2 pi f_c pos / fs, with s the
-  samples the 1-bit wire stands for and h the low-pass rebuilt from the
-  configuration (`modem.low_pass`), in float64.
+  samples the wire stands for (`wire_samples`: a 1-bit sigma-delta wire's
+  +-1 levels, or a complex integer wire's I, Q over its full scale) and h
+  the low-pass rebuilt from the configuration (`modem.low_pass`), in
+  float64.
 - `k2_input`: K2's input rows from the same definition, worked out
   again end to end: a demod block of one channel's outputs (`block_len`
   outputs from block b x `core_len`), its feedforward AGC (the gain that
@@ -53,8 +55,21 @@ def _cbf16(z: np.ndarray) -> np.ndarray:
 
 
 def wire_samples(fmt: str, wire: np.ndarray, pos: np.ndarray) -> np.ndarray:
-    """The complex samples at indices `pos` of a 1-bit wire (complex128)."""
+    """The complex samples at indices `pos` of a wire (complex128): cr1's
+    real bits at the fs/4 IF, ci1's I, Q bits (MSB first), as +-1; ci16's
+    little-endian int16 I, Q over 32768, ci8's int8 over 128, cu8's
+    uint8 as (v - 127.5) / 127.5."""
     pos = np.asarray(pos, np.int64)
+    if fmt == "ci16":
+        def comp(b):
+            v = wire[b].astype(np.int64) | (wire[b + 1].astype(np.int64) << 8)
+            return (v - ((v >> 15) << 16)) / 32768.0
+        return comp(4 * pos) + 1j * comp(4 * pos + 2)
+    if fmt == "ci8":
+        return (wire[2 * pos].view(np.int8) / 128.0
+                + 1j * (wire[2 * pos + 1].view(np.int8) / 128.0))
+    if fmt == "cu8":
+        return (wire[2 * pos] - 127.5) / 127.5 + 1j * ((wire[2 * pos + 1] - 127.5) / 127.5)
     if fmt == "cr1":
         bit = (wire[pos >> 3] >> (7 - (pos & 7))) & 1
         return (2.0 * bit - 1.0) * _ROT[pos & 3]

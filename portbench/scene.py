@@ -10,9 +10,12 @@ are written into it, and two bytes come from the seed), HDLC-framed and
 NRZI-coded by `modem.py` and GMSK-modulated on the card, at a phase and
 an extra frequency within +-`extra_freq_hz` drawn from the seed.  White
 noise of `noise_std` a component, drawn on the card from the seed, is
-added, and the capture is sigma-delta encoded into the configuration's
-1-bit wire (`sdenc.py`).  Packets are kept inside the call's core span,
-so each replayed step owns all of them.
+added.  The front end's gain maps the capture's peak to the
+configuration's `wire_headroom` of full scale, and the capture is
+encoded into the configuration's wire (`sdenc.py`: the 1-bit
+sigma-delta wires cr1, ci1, or the complex integer wires ci16, ci8,
+cu8).  Packets are kept inside the call's core span, so each replayed
+step owns all of them.
 """
 
 from __future__ import annotations

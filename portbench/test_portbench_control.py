@@ -2,8 +2,9 @@
 below the configuration's float32 (bfloat16 operands, float32 sums),
 judged by the run's own check, comes out not correct on the
 channelizer's and K2's numbers, which the program passes; at a size a
-test run holds (3 blocks, the CPU; both 1-bit wires), and at the cell's
-own size on the card.  (The ci1 configuration's limits are cr1's.)"""
+test run holds (3 blocks, the CPU; both 1-bit wires and ci8), and at the
+cell's own size on the card.  (The ci1 and ci8 configurations' limits
+are cr1's.)"""
 
 import json
 
@@ -22,7 +23,7 @@ def _assert_separated(lines):
         assert ln["control_chan_gap"] >= 3 * lim["chan_gap"]
 
 
-@pytest.mark.parametrize("tag", ["cr1", "ci1"])
+@pytest.mark.parametrize("tag", ["cr1", "ci1", "ci8"])
 def test_control_fails_where_the_program_passes(tiny, tag):
     _assert_separated(run_control(tiny, f"tiny_{tag}", [2147483601, 2147483602], "cpu"))
 

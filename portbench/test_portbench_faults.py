@@ -53,7 +53,7 @@ def _patch(tmp_path, root, fault) -> str:
     return str(tmp_path)
 
 
-@pytest.mark.parametrize("tag", ["cr1", "ci1"])
+@pytest.mark.parametrize("tag", ["cr1", "ci1", "ci8"])
 @pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_step_is_not_correct(tiny, tmp_path, tag, fault):
     rc, result, err = run_cell(tiny, f"tiny_{tag}", seconds=2.0,

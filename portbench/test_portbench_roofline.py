@@ -1,7 +1,7 @@
 """The kernels' least work, against values worked by hand at the
 cells' shapes (384 blocks: n_in 226 026 200, 4 520 464 outputs a
 channel, 2891 taps, 2 channels; K2 on 768 rows of 16 384 samples, a
-140-sample preamble)."""
+140-sample preamble; the integer wires' stage at the same shapes)."""
 
 import pytest
 
@@ -25,6 +25,17 @@ def test_k3_counts_at_the_cell_shape():
     assert w.flops == 2 * (6 * 226_026_200 + 4 * 2891 * 4_520_464)
     assert w.bytes == 56_506_550 + 11_564 + 72_327_424
     assert w.bound() == "operations"
+
+
+@pytest.mark.parametrize("fmt,per_sample", [("ci16", 4), ("ci8", 2), ("cu8", 2)])
+def test_integer_wire_counts_at_the_cell_shape(fmt, per_sample):
+    """The decode and K5 together: a complex mix, read from the wire bytes."""
+    w = roofline.channelizer_work(fmt, N_IN, 2, N_OUT, NTAPS)
+    assert w.flops == 2 * (6 * 226_026_200 + 4 * 2891 * 4_520_464)
+    assert w.bytes == per_sample * 226_026_200 + 11_564 + 72_327_424
+    # 2 or 4 wire bytes a sample outweigh the operations at 3.35 TB/s
+    assert w.bound() == "bytes"
+    assert w.least_s() == pytest.approx(w.bytes / 3.35e12)
 
 
 def test_k2_counts_at_the_cell_shape():

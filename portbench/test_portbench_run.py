@@ -20,7 +20,7 @@ def _check_lines(stderr: str) -> list:
     return tail
 
 
-@pytest.mark.parametrize("name", ["tiny_cr1", "tiny_ci1"])
+@pytest.mark.parametrize("name", ["tiny_cr1", "tiny_ci1", "tiny_ci8", "tiny_ci16"])
 def test_a_run_prints_the_contract_line(tiny, name):
     rc, result, err = run_cell(tiny, name, seconds=3.0)
     assert rc == 0, err[-3000:]
