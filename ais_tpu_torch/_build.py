@@ -190,6 +190,9 @@ WIRE_CHANNELIZER_CI2 = Kernel("wire_channelizer_ci2", "ais_wire_channelizer_ci2"
                               _CHANNELIZER_ARGS)
 WIRE_CHANNELIZER_CI4 = Kernel("wire_channelizer_ci4", "ais_wire_channelizer_ci4",
                               _CHANNELIZER_ARGS)
+# K5 decoding rtl_sdr's cu8 bytes in its prologue.
+WIRE_CHANNELIZER_CU8 = Kernel("wire_channelizer_cu8", "ais_wire_channelizer_cu8",
+                              _CHANNELIZER_ARGS)
 PROBE = Kernel(
     "probe",
     "ais_probe",
@@ -197,7 +200,8 @@ PROBE = Kernel(
     [_P, _P, _P, _I, _P],
 )
 KERNELS = (WIRE_CHANNELIZER_CR1, WIRE_CHANNELIZER_CI1_MMA, MATCHED_FILTER, CHANNELIZER,
-           WIRE_CHANNELIZER_CI1, WIRE_CHANNELIZER_CI2, WIRE_CHANNELIZER_CI4, PROBE)
+           WIRE_CHANNELIZER_CI1, WIRE_CHANNELIZER_CI2, WIRE_CHANNELIZER_CI4,
+           WIRE_CHANNELIZER_CU8, PROBE)
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,9 @@
 // template whose decode prologue is its only difference.
 //
 // Replaces, in ais_tpu/ops/pallas_fir.py:
-//   K5  pallas_freq_xlating_polyphase (body _chan_kernel): complex64 IQ;
+//   K5  pallas_freq_xlating_polyphase (body _chan_kernel): complex64 IQ,
+//       and, with no Pallas counterpart, rtl_sdr's cu8 bytes (offset
+//       binary I, Q), decoded here rather than by a pass of their own;
 //   K3  _pallas_wire_channelizer_ci1 (body _wire_kernel_ci1): ci1 bit
 //       pairs, MSB-first I0 Q0 I1 Q1 I2 Q2 I3 Q3, levels +-1 (cd1 arrives
 //       here after ci1_from_bytes_cd1);
@@ -38,8 +40,8 @@
 //      of D, are staged once a block, and no block is launched a tile.
 //   1. Prologue, once a tile: decode and mix the tile's T + Jc*R rows
 //      into shared memory, channels interleaved (one 16-byte load serves
-//      two channels).  A lane reads a 32-bit word of wire bytes (4, 8 or
-//      16 samples) and the lanes of a warp exchange words by shuffle, so
+//      two channels).  A lane reads a 32-bit word of wire bytes (2, 4, 8
+//      or 16 samples) and the lanes of a warp exchange words by shuffle, so
 //      that adjacent lanes mix and store adjacent samples.  The carrier
 //      index is advanced and wrapped, not taken modulo q a sample.
 //   2. A thread owns one phase p and R consecutive outputs of the tile
@@ -98,6 +100,22 @@ struct DecodeF32 {  // K5: complex64 samples, one a unit
     return unit < n_in ? static_cast<const float2*>(src)[unit] : make_float2(0.0f, 0.0f);
   }
   static __device__ __forceinline__ float2 sample(Word w, int) { return w; }
+};
+
+struct DecodeCu8 {  // K5 on rtl_sdr bytes: 2 samples a word, I then Q, (v - 127.5) / 127.5
+  static constexpr int kSamples = 2;
+  using Word = uint32_t;
+  static __device__ __forceinline__ Word load(const void* src, long long unit, long long n_in) {
+    return load_word(src, unit, 2 * n_in);
+  }
+  static __device__ __forceinline__ float2 sample(Word w, int k) {
+    // ops/convert.py:iq_from_bytes_cu8's arithmetic: an exact difference,
+    // then one rounding in the product with 1/127.5 rounded to float.
+    constexpr float kInv = static_cast<float>(1.0 / 127.5);
+    const float i = static_cast<float>((w >> (16 * k)) & 0xFFu);
+    const float q = static_cast<float>((w >> (16 * k + 8)) & 0xFFu);
+    return make_float2(__fmul_rn(i - 127.5f, kInv), __fmul_rn(q - 127.5f, kInv));
+  }
 };
 
 struct DecodeCi1 {  // K3: 4 samples a byte, sample s at bits 7-2s (I), 6-2s (Q)
@@ -454,3 +472,4 @@ AIS_CHANNELIZER_ENTRY(ais_channelizer_f32, DecodeF32)
 AIS_CHANNELIZER_ENTRY(ais_wire_channelizer_ci1, DecodeCi1)
 AIS_CHANNELIZER_ENTRY(ais_wire_channelizer_ci2, DecodeCi2)
 AIS_CHANNELIZER_ENTRY(ais_wire_channelizer_ci4, DecodeCi4)
+AIS_CHANNELIZER_ENTRY(ais_wire_channelizer_cu8, DecodeCu8)

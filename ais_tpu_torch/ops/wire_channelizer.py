@@ -44,9 +44,11 @@ PyTorch, from the packed buffer.
 K3 (ci1; cd1 after `ci1_from_bytes_cd1`) and K4 (ci2, ci4) are the
 counterparts of `_pallas_wire_channelizer_ci1` and of
 `pallas_wire_channelizer` for ci2/ci4: y as in K5 (ops/channelizer.py)
-on the decoded complex sample, with the baseband carrier.  Their plain
-versions are the port's decoder (ops/convert.py) followed by K5's plain
-version.  K4's CUDA kernels, and K3's for the geometries its own form
+on the decoded complex sample, with the baseband carrier.  K5's cu8
+entry is the same on rtl_sdr's offset-binary bytes (no TPU kernel: the
+reference decodes cu8 on the host).  Their plain versions are the
+port's decoder (ops/convert.py) followed by K5's plain version.  K4's
+CUDA kernels, the cu8 entry, and K3's for the geometries its own form
 does not take, share K5's template in `csrc/channelizer.cu` and differ
 only in the decode prologue.
 
@@ -91,6 +93,7 @@ from ais_tpu_torch.ops.convert import (
     iq_from_bytes_ci1,
     iq_from_bytes_ci2,
     iq_from_bytes_ci4,
+    iq_from_bytes_cu8,
     unpack_bits_pm1,
 )
 from ais_tpu_torch.ops.fir import fir_polyphase
@@ -126,24 +129,33 @@ def carrier_table_period(offsets_hz, sample_rate: float) -> int | None:
 
 
 class PackedFormat(NamedTuple):
-    samples_per_byte: int
+    samples_per_word: int     # samples in a 32-bit word of wire bytes, the kernel's unit
     decode: Callable          # (raw_u8,) -> (n,) complex64, ops/convert.py
     kernel: _build.Kernel     # its entry point in csrc/channelizer.cu
 
+    def whole(self, n_in: int) -> bool:
+        """True when n_in samples fill whole wire bytes."""
+        return 4 * n_in % self.samples_per_word == 0
 
-# The formats of K3 and K4.
+    def nbytes(self, n_in: int) -> int:
+        return 4 * n_in // self.samples_per_word
+
+
+# The formats decoded inside csrc/channelizer.cu's template: K3, K4, K5's cu8 entry.
 PACKED = {
-    "ci1": PackedFormat(4, iq_from_bytes_ci1, _build.WIRE_CHANNELIZER_CI1),
-    "ci2": PackedFormat(2, iq_from_bytes_ci2, _build.WIRE_CHANNELIZER_CI2),
-    "ci4": PackedFormat(1, iq_from_bytes_ci4, _build.WIRE_CHANNELIZER_CI4),
+    "ci1": PackedFormat(16, iq_from_bytes_ci1, _build.WIRE_CHANNELIZER_CI1),
+    "ci2": PackedFormat(8, iq_from_bytes_ci2, _build.WIRE_CHANNELIZER_CI2),
+    "ci4": PackedFormat(4, iq_from_bytes_ci4, _build.WIRE_CHANNELIZER_CI4),
+    "cu8": PackedFormat(2, iq_from_bytes_cu8, _build.WIRE_CHANNELIZER_CU8),
 }
+_CU8_INV = np.float32(1.0 / 127.5)
 
 
 def word_sample(fmt: str, word: int, k: int) -> complex:
     """Sample k of one 32-bit little-endian word of `fmt`'s wire bytes
-    (byte b at bits 8b..8b+7), by the shifts of the kernel's decode
-    prologue, which reads a word a thread: 16 samples of ci1, 8 of ci2,
-    4 of ci4."""
+    (byte b at bits 8b..8b+7), by the shifts and float32 arithmetic of
+    the kernel's decode prologue, which reads a word a thread: 16
+    samples of ci1, 8 of ci2, 4 of ci4, 2 of cu8."""
     if fmt == "ci1":
         sh = 8 * (k >> 2) + 6 - 2 * (k & 3)
         return complex(2.0 * ((word >> (sh + 1)) & 1) - 1.0, 2.0 * ((word >> sh) & 1) - 1.0)
@@ -155,6 +167,9 @@ def word_sample(fmt: str, word: int, k: int) -> complex:
         def nibble(v):
             return (v & 15) - 16 * ((v & 15) >= 8)
         return complex(nibble(word >> (8 * k + 4)) * 0.125, nibble(word >> (8 * k)) * 0.125)
+    if fmt == "cu8":
+        i, q = (np.float32((word >> sh) & 255) - np.float32(127.5) for sh in (16 * k, 16 * k + 8))
+        return complex(i * _CU8_INV, q * _CU8_INV)
     raise ValueError(f"no packed wire format {fmt!r}")
 
 
@@ -166,9 +181,11 @@ def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,
     carriers with a period of at most MAX_CARRIER_PERIOD; the packed taps
     and one tile's wire bits within a block's shared memory; and, when
     `n_in` is given, whole bytes and whole decimation rows.  ci1, ci2
-    and ci4 (K3, K4) need what K5 needs (`channelizer_supported`) and,
-    with `n_in`, whole bytes.  For ci1, ci2 and ci4, wherever
-    `ais_tpu/ops/pallas_fir.py:wire_channelizer_supported` accepts, so
+    and ci4 (K3, K4) and cu8 (K5's cu8 entry) need what K5 needs
+    (`channelizer_supported`) and, with `n_in`, whole bytes (cu8 always
+    has them, so it takes every geometry K5 takes and no other).  For
+    ci1, ci2 and ci4, wherever `ais_tpu/ops/pallas_fir.py:
+    wire_channelizer_supported` accepts, so
     does this; it accepts more: the TPU kernels' n_in % 200 and
     128-lane rules, ci1's decim % 4 == 2 and ci2's even decim come from
     Mosaic and the MXU, not from the contract.  For cr1 it accepts less
@@ -186,7 +203,7 @@ def wire_channelizer_supported(fmt: str, ntaps: int, decim: int, offsets_hz,
             return False
         return kernel_smem_bytes(ntaps, decim, len(offsets_hz)) <= MAX_SMEM_BYTES
     if fmt in PACKED:
-        if n_in is not None and n_in % PACKED[fmt].samples_per_byte:
+        if n_in is not None and not PACKED[fmt].whole(n_in):
             return False
         return channelizer_supported(ntaps, decim, offsets_hz, sample_rate, n_in)
     return False
@@ -523,25 +540,24 @@ def wire_channelizer_cr1(raw_u8: torch.Tensor, car: torch.Tensor,
 
 def wire_channelizer_packed_plain(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor,
                                   taps: torch.Tensor, decim: int) -> torch.Tensor:
-    """Plain PyTorch K3/K4: decode `fmt`'s bytes, then K5's plain version.
-    `car` is the rotated baseband (n_chan, q, 2) carrier table."""
+    """Plain PyTorch K3/K4 and K5 on cu8: decode `fmt`'s bytes, then K5's
+    plain version.  `car` is the rotated baseband (n_chan, q, 2) carrier table."""
     return freq_xlating_polyphase_plain(PACKED[fmt].decode(raw_u8), car, taps, decim)
 
 
 def wire_channelizer_packed(fmt: str, raw_u8: torch.Tensor, car: torch.Tensor,
                             taps: torch.Tensor, *, decim: int, n_in: int,
                             folded: FoldedTaps | None = None) -> torch.Tensor:
-    """K3 (fmt "ci1") or K4 ("ci2", "ci4") on the tensor's device: a
-    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    Returns (n_chan, n_out) complex64.
+    """K3 (fmt "ci1"), K4 ("ci2", "ci4") or K5's cu8 entry ("cu8") on the
+    tensor's device: a CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor.  Returns (n_chan, n_out) complex64.
 
     On the card ci1 runs its 1-bit tensor-core form wherever
     `ci1_mma_takes` accepts the geometry (`folded` is then that form's
     taps, `PackedWireChannelizer.folded`; without it they are derived
     from `car` and `taps`), and the template kernel everywhere else."""
     spec = PACKED[fmt]
-    if raw_u8.dtype != torch.uint8 or n_in % spec.samples_per_byte \
-            or raw_u8.numel() != n_in // spec.samples_per_byte:
+    if raw_u8.dtype != torch.uint8 or not spec.whole(n_in) or raw_u8.numel() != spec.nbytes(n_in):
         raise ValueError(f"{fmt} wire of {raw_u8.numel()} bytes does not hold n_in={n_in}")
     if raw_u8.device.type == "cuda":
         if fmt == "ci1" and ci1_mma_takes(taps.numel(), decim, car.shape[0], car.shape[1]):
@@ -589,16 +605,17 @@ class WireChannelizer(torch.nn.Module):
 
 
 class PackedWireChannelizer(Channelizer):
-    """ci1 / ci2 / ci4 wire bytes -> (n_chan, n_out) channels (K3, K4);
-    owns the taps and the baseband carrier table, as K5's module does,
-    and for ci1, where the geometry allows (`ci1_mma_supported`), the
-    bit-stream taps of K3's 1-bit form (`folded`, else None)."""
+    """ci1 / ci2 / ci4 / cu8 wire bytes -> (n_chan, n_out) channels (K3,
+    K4, K5's cu8 entry); owns the taps and the baseband carrier table, as
+    K5's module does, and for ci1, where the geometry allows
+    (`ci1_mma_supported`), the bit-stream taps of K3's 1-bit form
+    (`folded`, else None)."""
 
     def __init__(self, fmt: str, taps, decim: int, offsets_hz, sample_rate: float,
                  n_in: int, device="cuda"):
         if fmt not in PACKED:
             raise ValueError(f"no packed wire channelizer for {fmt!r}")
-        if n_in % PACKED[fmt].samples_per_byte:
+        if not PACKED[fmt].whole(n_in):
             raise ValueError(f"n_in={n_in} is not whole {fmt} bytes")
         super().__init__(taps, decim, offsets_hz, sample_rate, n_in, device=device)
         self.fmt = fmt

@@ -8,6 +8,7 @@ program after the channelizer:
     through K5, the float channelizer;
   wire bytes (`stage_wire` / `submit_wire` / `decode_wire`), per format:
     ci16, ci8  decode on the device, then K5
+    cu8        K5's cu8 entry (rtl_sdr's bytes decoded inside the kernel)
     ci4, ci2   K4 (decode inside the channelizer kernel)
     ci1        K3; cd1 is undone to ci1 on the device first
     cr1        K1 (the IF-folded 1-bit channelizer)
@@ -205,7 +206,8 @@ def aligned_n_in(cfg: WidebandConfig, n_in: int | None = None) -> int:
 
 
 # Wire bytes per sample (num, den) of the formats without padding.
-_WIRE_RATIO = {"ci16": (4, 1), "ci8": (2, 1), "ci4": (1, 1), "ci2": (1, 2), "ci1": (1, 4)}
+_WIRE_RATIO = {"ci16": (4, 1), "ci8": (2, 1), "cu8": (2, 1), "ci4": (1, 1), "ci2": (1, 2),
+               "ci1": (1, 4)}
 WIRE_FORMATS = (*_WIRE_RATIO, "cd1", "cr1")
 
 
@@ -454,21 +456,24 @@ def _zero_collect_stats() -> dict:
     """The wire path's per-part seconds and counts (`collect_stats`)."""
     return {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0, "dispatch_s": 0.0,
             "unpack_s": 0.0, "deframe_s": 0.0, "emit_s": 0.0, "recover_s": 0.0, "lanes": 0,
-            "frames": 0, "row_steps": 0}
+            "frames": 0, "row_steps": 0, "stage_s": 0.0, "wire_bytes": 0}
 
 
 class WidebandReceiver:
     """Streaming receiver on one device (see the module docstring).
 
     The wire path keeps `collect_stats` (seconds and counts summed over
-    steps until `reset_collect_stats`): exec_s, fetch_s and host_s, the
-    parts of `collect` (the wait for the device result, the copy to the
-    host, the host back half); dispatch_s, the host enqueueing the device
-    program (`dispatch_wire`); within the back half, unpack_s (the fetch
-    parsed, or unpacked, the overflowed blocks found), deframe_s (the
-    batched deframe), emit_s (packets, dedup admission, the sort, image-ghost
-    suppression) and recover_s (overflow recovery: the step's samples
-    from its wire bytes, `_recover`, the merge); lanes (valid lanes
+    steps until `reset_collect_stats`): stage_s and wire_bytes, the
+    seconds in `stage_wire` and the wire bytes it staged (its span
+    `rx.stage` holds `rx.stage.copy`, the host-to-device copy alone);
+    exec_s, fetch_s and host_s, the parts of `collect` (the wait for the
+    device result, the copy to the host, the host back half); dispatch_s,
+    the host enqueueing the device program (`dispatch_wire`); within the
+    back half, unpack_s (the fetch parsed, or unpacked, the overflowed
+    blocks found), deframe_s (the batched deframe), emit_s (packets,
+    dedup admission, the sort, image-ghost suppression) and recover_s
+    (overflow recovery: the step's samples from its wire bytes,
+    `_recover`, the merge); lanes (valid lanes
     shipped to the host) and frames (frames the deframer returned, before
     dedup); steps, and row_steps (the steps whose compact fetch was read
     in place).  Each part is two `time.perf_counter_ns()` readings a
@@ -490,7 +495,7 @@ class WidebandReceiver:
         self.n_chan, self.n_blocks, self.core_len = wideband_geometry(cfg, self.n_in)
         self.constants = default_constants(cfg) if constants is None else constants
         # Channelizer modules by kind ("iq" = K5, "cr1" = K1, "ci1" = K3,
-        # "ci2"/"ci4" = K4), each built at first use.
+        # "ci2"/"ci4" = K4, "cu8" = K5's cu8 entry), each built at first use.
         self._channelizers: dict = {}
         self.demod_cfg = _demod_cfg(cfg)
         self.demod = BurstDemod(
@@ -522,7 +527,8 @@ class WidebandReceiver:
 
     def channelizer_for(self, kind: str) -> torch.nn.Module:
         """The channelizer module of `kind` ("iq": K5 on complex samples;
-        "cr1": K1; "ci1": K3; "ci2", "ci4": K4), built on first use.
+        "cr1": K1; "ci1": K3; "ci2", "ci4": K4; "cu8": K5's cu8 entry),
+        built on first use.
         Raises NotImplementedError when no kernel covers the geometry."""
         mod = self._channelizers.get(kind)
         if mod is None:
@@ -604,11 +610,22 @@ class WidebandReceiver:
             raise ValueError(
                 f"{fmt} wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
         at = self._pos if pos is None else int(pos)
-        with SPANS.span("rx.stage", at):
+        t0 = time.perf_counter_ns()
+        span = SPANS.begin("rx.stage", at, t0)
+        try:
             self.prepare(fmt)
             host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
+            c0 = time.perf_counter_ns()
             raw = host.to(self.device, non_blocking=True)
+            c1 = time.perf_counter_ns()
+            SPANS.add("rx.stage.copy", at, c0, c1)
             ph = torch.from_numpy(self._phase0s(at)).to(self.device)
+        finally:
+            t1 = time.perf_counter_ns()
+            SPANS.end(span, t1)
+        st = self.collect_stats
+        st["stage_s"] += (t1 - t0) * 1e-9
+        st["wire_bytes"] += int(raw_u8.size)
         if pos is None:
             self._pos += self.step_raw
         return raw, ph, at, fmt, raw_u8

@@ -143,7 +143,7 @@ def channelizer_inputs(name: str):
     from ais_tpu_torch.ops import wire_channelizer as wc
     from ais_tpu_torch.ops.fir import mixer_phase
     from ais_tpu_torch.pipeline.radio import ppm_offset_hz
-    from ais_tpu_torch.pipeline.wideband import channel_taps
+    from ais_tpu_torch.pipeline.wideband import channel_taps, wire_nbytes
 
     dev = torch.device("cuda")
     cfg, n_in = bench_geometry()
@@ -161,7 +161,7 @@ def channelizer_inputs(name: str):
         return (lambda: ch.freq_xlating_polyphase(x, car, chan.taps, decim=chan.decim),
                 lambda: ch.freq_xlating_polyphase_plain(x, car, chan.taps, chan.decim))
     fmt = {"k3": "ci1", "k4_ci2": "ci2", "k4_ci4": "ci4"}[name]
-    raw = torch.randint(0, 256, (n_in // wc.PACKED[fmt].samples_per_byte,), device=dev,
+    raw = torch.randint(0, 256, (wire_nbytes(fmt, n_in),), device=dev,
                         dtype=torch.uint8, generator=gen)
     extra = {}
     if fmt == "ci1" and hasattr(wc, "ci1_mma_supported"):

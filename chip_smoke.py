@@ -152,7 +152,7 @@ TIMED_STEPS = 5
 PATH_STEPS = 3  # timed steps of the complex path and of each wire format
 SEED = 7
 TOLERANCE = "|err| <= 2e-5*max|y| + 2e-4*|y|"
-WIRE_FORMATS = ("ci16", "ci8", "ci4", "ci2", "ci1", "cd1")
+WIRE_FORMATS = ("ci16", "ci8", "cu8", "ci4", "ci2", "ci1", "cd1")
 RADIO_PPM = 50.0           # LO error of the ppm radio phase
 OVERFLOW_BLOCKS, OVERFLOW_K = 8, 3
 PPM_WIRE_BLOCKS = 8        # blocks a step of the wire_ci1_ppm path
@@ -501,8 +501,9 @@ def phase_fir_only(cfg, n_in: int) -> float:
 
 
 def phase_k3_k4_k5(cfg, n_in: int) -> list:
-    """K3 (ci1), K4 (ci2, ci4) on random wire bytes and K5 on random
-    complex64 samples, at the bench n_in, with random start phases."""
+    """K3 (ci1), K4 (ci2, ci4), K5's cu8 entry on random wire bytes and
+    K5 on random complex64 samples, at the bench n_in, with random start
+    phases."""
     import torch
 
     from ais_tpu_torch.ops.channelizer import (
@@ -534,8 +535,10 @@ def phase_k3_k4_k5(cfg, n_in: int) -> list:
     for phase, fmt, name, source, replaces, folded in (
             ("k3", "ci1", "wire_channelizer_ci1_mma", "wire_channelizer.cu", ":707", ci1.folded),
             ("k4_ci2", "ci2", "wire_channelizer_ci2", "channelizer.cu", ":784", None),
-            ("k4_ci4", "ci4", "wire_channelizer_ci4", "channelizer.cu", ":784", None)):
-        raw = torch.randint(0, 256, (n_in // PACKED[fmt].samples_per_byte,), device=dev,
+            ("k4_ci4", "ci4", "wire_channelizer_ci4", "channelizer.cu", ":784", None),
+            # K5 decoding rtl_sdr's bytes (the reference decodes them first).
+            ("k5_cu8", "cu8", "wire_channelizer_cu8", "channelizer.cu", ":171", None)):
+        raw = torch.randint(0, 256, (PACKED[fmt].nbytes(n_in),), device=dev,
                             dtype=torch.uint8, generator=gen)
         car = rotate_carrier(chan.carrier, random_phase0s(cfg, rng))
         rows.append(hold_channelizer(
@@ -624,6 +627,9 @@ K5_SHAPES = (
     ("d1800_2_channels_1_output_a_thread", "iq", None, 2.4e6, 1800, (-25e3, 25e3), 360_000),
     ("ci2_3_channels", "ci2", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
     ("ci4_d5_1_channel", "ci4", (11e3, 4e3), 250e3, 5, (25e3,), 1_048_575),
+    # K5's cu8 entry: an odd n_in, whose wire ends inside a 32-bit word; 3 channels.
+    ("cu8_d51_partial_last_word", "cu8", None, 2.4e6, 51, (-25e3, 25e3), 400_095),
+    ("cu8_3_channels", "cu8", None, 2.4e6, 50, (-25e3, 25e3, 0.0), 400_000),
     # K3's 1-bit form (the fragments derived from the table): odd
     # decimation and a wire that ends inside a 32-bit word; 1, 3, 4 channels.
     ("ci1_d51_partial_last_word", "ci1", None, 2.4e6, 51, (-25e3, 25e3), 400_044),
@@ -693,7 +699,7 @@ def phase_k5_shapes(cfg) -> None:
                                         8.0 * n_in, car.shape[1], 6)}
                 del planes
         else:
-            raw = torch.randint(0, 256, (n_in // PACKED[kind].samples_per_byte,), device=dev,
+            raw = torch.randint(0, 256, (PACKED[kind].nbytes(n_in),), device=dev,
                                 dtype=torch.uint8, generator=gen)
             got = wire_channelizer_packed(kind, raw, car, chan.taps, decim=decim, n_in=n_in)
             ref = wire_channelizer_packed_plain(kind, raw, car, chan.taps, decim)
@@ -1060,7 +1066,7 @@ def phase_wire_formats(cfg, n_in: int, card: str, iq: np.ndarray, tx_packets) ->
 
     kernel_of = {"ci16": "channelizer", "ci8": "channelizer", "ci4": "wire_channelizer_ci4",
                  "ci2": "wire_channelizer_ci2", "ci1": "wire_channelizer_ci1_mma",
-                 "cd1": "wire_channelizer_ci1_mma"}
+                 "cd1": "wire_channelizer_ci1_mma", "cu8": "wire_channelizer_cu8"}
     scaled = (iq * 0.7).astype(np.complex64)
     rx = WidebandReceiver(cfg, n_in=n_in, device="cuda")
     fresh = rx.get_state()
@@ -2086,7 +2092,7 @@ def main() -> int:
     per_step = {k: main_path["launches"][k] / main_path["steps"]
                 for k in ("wire_channelizer_cr1", "matched_filter")}
     per_step["channelizer"] = complex_path["channelizer"]
-    for fmt in ("ci2", "ci4"):
+    for fmt in ("ci2", "ci4", "cu8"):
         per_step[f"wire_channelizer_{fmt}"] = formats[fmt][f"wire_channelizer_{fmt}"]
     per_step["wire_channelizer_ci1_mma"] = formats["ci1"]["wire_channelizer_ci1_mma"]
     ci1_ppm = phase_wire_ci1_ppm(card, iq, tx_packets)

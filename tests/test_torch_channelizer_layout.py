@@ -128,7 +128,7 @@ def test_emulated_walk_matches_plain_k5(name):
     _hold(got, want)
 
 
-@pytest.mark.parametrize("fmt", ["ci1", "ci2", "ci4"])
+@pytest.mark.parametrize("fmt", ["ci1", "ci2", "ci4", "cu8"])
 def test_emulated_walk_matches_plain_wire(fmt):
     taps, rate, decim, offsets, n_in = _case("bench_d50_2ch_ends_inside_a_tile")
     n_in = 17_600                                       # whole ci1 words, D rows
@@ -137,7 +137,7 @@ def test_emulated_walk_matches_plain_wire(fmt):
     want = twc.wire_channelizer_packed_plain(fmt, torch.from_numpy(raw), car,
                                              torch.from_numpy(taps), decim).numpy()
     # The kernel's decoder, a word a thread.
-    per = twc.PACKED[fmt].samples_per_byte * 4
+    per = twc.PACKED[fmt].samples_per_word
     words = np.frombuffer(raw.tobytes(), "<u4")
     x = np.array([twc.word_sample(fmt, int(w), k) for w in words for k in range(per)],
                  np.complex64)
@@ -145,13 +145,13 @@ def test_emulated_walk_matches_plain_wire(fmt):
     _hold(got, want)
 
 
-@pytest.mark.parametrize("fmt", ["ci1", "ci2", "ci4"])
+@pytest.mark.parametrize("fmt", ["ci1", "ci2", "ci4", "cu8"])
 def test_word_decoder_equals_plain_decoder_bit_for_bit(fmt):
     rng = np.random.default_rng(5)
     raw = rng.integers(0, 256, 64, dtype=np.uint8)
     raw[:8] = (0x00, 0xFF, 0x80, 0x7F, 0x08, 0xF7, 0x1B, 0xE4)
     want = twc.PACKED[fmt].decode(torch.from_numpy(raw)).numpy()
-    per = twc.PACKED[fmt].samples_per_byte * 4
+    per = twc.PACKED[fmt].samples_per_word
     got = np.array([twc.word_sample(fmt, int(w), k)
                     for w in np.frombuffer(raw.tobytes(), "<u4") for k in range(per)], np.complex64)
     assert got.view(np.uint32).tolist() == want.view(np.uint32).tolist()

@@ -114,13 +114,14 @@ def test_wire_byte_counts_match_reference_table():
     for n in (1_000_000, 1_000_004, 822_200):
         assert tw.wire_nbytes("ci16", n) == 4 * n
         assert tw.wire_nbytes("ci8", n) == 2 * n
+        assert tw.wire_nbytes("cu8", n) == 2 * n
         assert tw.wire_nbytes("ci4", n) == n
         assert tw.wire_nbytes("ci2", n) == n // 2
         assert tw.wire_nbytes("ci1", n) == n // 4
         assert tw.wire_nbytes("cd1", n) == rconvert.cd1_wire_nbytes(n)
         assert tw.wire_nbytes("cr1", n) == rconvert.cr1_wire_nbytes(n)
     with pytest.raises(ValueError, match="unsupported wire format"):
-        tw.wire_nbytes("cu8", 1000)
+        tw.wire_nbytes("cx3", 1000)
 
 
 def test_wire_api_default_format_matches_reference():

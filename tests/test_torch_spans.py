@@ -161,10 +161,44 @@ def test_spans_and_counters_share_their_readings(stream, spans):
     length = (a["end_ns"] - a["start_ns"]) * 1e-9
     names = list(a["names"])
     st = rx.collect_stats
-    for span, key in [("rx.wait", "exec_s"), ("rx.fetch", "fetch_s"), ("rx.host", "host_s"),
+    for span, key in [("rx.stage", "stage_s"), ("rx.wait", "exec_s"), ("rx.fetch", "fetch_s"),
+                      ("rx.host", "host_s"),
                       ("rx.dispatch", "dispatch_s"), ("rx.host.unpack", "unpack_s"),
                       ("rx.host.deframe", "deframe_s"), ("rx.host.emit", "emit_s")]:
         assert length[a["name"] == names.index(span)].sum() == pytest.approx(st[key], rel=1e-9)
+
+
+def test_stage_counts_its_seconds_and_wire_bytes(stream):
+    """`stage_s` and `wire_bytes` count each staged step: n_in/8 bytes
+    rounded up on cr1, 2 n_in on cu8; `reset_collect_stats` zeroes them."""
+    cfg, n_in, wires = stream
+    rx, _ = _decode(stream)
+    st = rx.collect_stats
+    assert st["wire_bytes"] == 2 * -(-n_in // 8) == sum(w.size for w in wires)
+    assert 0 < st["stage_s"] and st["steps"] == 2
+    cu8 = tw.WidebandReceiver(cfg, n_in=n_in, device="cpu")
+    wire = np.random.default_rng(2).integers(0, 256, 2 * n_in, dtype=np.uint8)
+    t0 = time.perf_counter()
+    cu8.collect(cu8.dispatch_wire(cu8.stage_wire(wire, "cu8")))
+    elapsed = time.perf_counter() - t0
+    st = cu8.collect_stats
+    assert st["wire_bytes"] == 2 * n_in and st["steps"] == 1
+    assert 0 < st["stage_s"] < elapsed
+    cu8.reset_collect_stats()
+    assert cu8.collect_stats["stage_s"] == 0.0 and cu8.collect_stats["wire_bytes"] == 0
+
+
+def test_the_copy_lies_inside_its_stage(stream, spans):
+    """One `rx.stage.copy` a step, inside that step's `rx.stage`, with its `at`."""
+    rx, _ = _decode(stream)
+    a = spans.arrays()
+    names = list(a["names"])
+    copies = np.nonzero(a["name"] == names.index("rx.stage.copy"))[0]
+    assert sorted(a["at"][copies].tolist()) == [0, rx.step_raw]
+    for i in copies:
+        p = a["parent"][i]
+        assert _names(a, [p]) == ["rx.stage"] and a["at"][p] == a["at"][i]
+        assert a["start_ns"][p] <= a["start_ns"][i] <= a["end_ns"][i] <= a["end_ns"][p]
 
 
 def test_a_collection_is_a_span_and_disable_unhooks_it(spans):
@@ -209,7 +243,7 @@ def test_reset_zeroes_every_key(stream):
     rx, _ = _decode(stream, compact_lanes=1)
     st = rx.collect_stats
     assert set(st) == {"exec_s", "fetch_s", "host_s", "steps", "dispatch_s", *PARTS, "lanes",
-                       "frames", "row_steps"}
+                       "frames", "row_steps", "stage_s", "wire_bytes"}
     assert all(v > 0 for v in st.values())
     rx.reset_collect_stats()
     assert set(rx.collect_stats) == set(st) and not any(rx.collect_stats.values())

@@ -136,7 +136,7 @@ def test_constructor_builds_channelizers_lazily():
 def test_prepare_builds_the_route_channelizer():
     """`prepare(fmt)` builds only the channelizer `fmt`'s bytes run
     through: cr1 on K1 where K1 takes the geometry, on K5 where it does
-    not; ci8 always on K5; an unknown format raises."""
+    not; ci8 always on K5; cu8 on K5's cu8 entry; an unknown format raises."""
     rx = tw.WidebandReceiver(tw.WidebandConfig(), n_in=900_000, device="cpu")
     assert rx.prepare("cr1") is rx.channelizer_for("cr1")
     assert set(rx._channelizers) == {"cr1"}
@@ -145,8 +145,10 @@ def test_prepare_builds_the_route_channelizer():
                               device="cpu")
     assert odd.prepare("cr1") is odd.channelizer_for("iq")
     assert set(odd._channelizers) == {"iq"}
+    assert odd.prepare("cu8") is odd.channelizer_for("cu8")
+    assert set(odd._channelizers) == {"iq", "cu8"}
     with pytest.raises(ValueError, match="unsupported wire format"):
-        odd.prepare("cu8")
+        odd.prepare("cx3")
 
 
 def test_overflow_raises_on_the_complex_path(run, caplog):
