@@ -38,7 +38,7 @@ def _build(out: Path) -> bool:
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(tmp)],
+            ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17", str(_SRC), "-o", str(tmp)],
             check=True,
             capture_output=True,
             timeout=120,
@@ -97,6 +97,13 @@ def load():
         ctypes.c_float,
         ctypes.POINTER(ctypes.c_uint8),
     ]
+    lib.copy_bytes.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.c_int32,
+    ]
+    lib.copy_bytes.restype = None
     lib.crc16_x25.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
     lib.crc16_x25.restype = ctypes.c_uint16
     lib.hdlc_deframe.argtypes = [
@@ -230,6 +237,22 @@ def sigma_delta_cr1(iq: np.ndarray, scale: float, a2: float = 2.0) -> np.ndarray
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return out
+
+
+def copy_bytes(dst: np.ndarray, src: np.ndarray, threads: int) -> None:
+    """dst[:] = src, split over `threads` native threads (the interpreter
+    lock released).  Both are C-contiguous uint8 of one size, and do not
+    overlap.  Numpy twin: `np.copyto(dst, src)`."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    for a in (dst, src):
+        if a.dtype != np.uint8 or not a.flags.c_contiguous:
+            raise ValueError(f"copy_bytes takes C-contiguous uint8, got {a.dtype}")
+    if dst.size != src.size or not dst.flags.writeable:
+        raise ValueError(f"copy_bytes: a writeable {src.size}-byte destination, got "
+                         f"{dst.size} bytes")
+    lib.copy_bytes(dst.ctypes.data, src.ctypes.data, src.size, int(threads))
 
 
 def crc16_x25(data: bytes) -> int:

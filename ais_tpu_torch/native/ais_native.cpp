@@ -8,19 +8,106 @@
 //   - iq_convert_*: interleaved integer IQ -> complex64 (SDR ingest,
 //     reference python/radio.py:151-215 source formats)
 //   - crc16_x25: HDLC frame check sequence
+//   - copy_bytes: a byte range copied by several threads (the wire
+//     ingest's fill of its pinned chunks, pipeline/ingest.py)
 //   - hdlc_deframe: flag search + unstuff + CRC over an unpacked bit
 //     buffer, emitting payload spans; hdlc_deframe_packed_batch and
 //     hdlc_deframe_rows, the same over every burst of a record fetch in
 //     one call (the hot part of the host back half when burst counts are
 //     large)
 //
-// Build: cc -O3 -shared -fPIC ais_native.cpp -o libais_native.so
+// Build: c++ -O3 -shared -fPIC -pthread ais_native.cpp -o libais_native.so
 
+#include <unistd.h>
+
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
+#include <thread>
 #include <vector>
 
+// ---------------------------------------------------------- copy pool ----
+
+namespace {
+
+// Worker threads for copy_bytes, started at first use and kept: a thread
+// costs far more to start than a few MiB take to copy.  One call at a
+// time (`call`); each call posts a job, bumps `gen` and wakes the
+// workers, copies its own part, then waits for `pending` to reach 0.
+// Workers are detached and the pool is never freed; a forked child,
+// which has none of them, starts a pool of its own (`pid`).
+struct CopyPool {
+  std::mutex call, m;
+  std::condition_variable work, done;
+  pid_t pid = getpid();
+  int64_t n_workers = 0;
+  uint64_t gen = 0;
+  int64_t pending = 0, parts = 0, step = 0;
+  uint8_t* dst = nullptr;
+  const uint8_t* src = nullptr;
+
+  void run(int64_t id, uint64_t seen) {
+    std::unique_lock<std::mutex> lk(m);
+    for (;;) {
+      work.wait(lk, [&] { return gen != seen; });
+      seen = gen;
+      if (id + 1 >= parts) continue;  // not needed in this job
+      const int64_t off = id * step;
+      lk.unlock();
+      std::memcpy(dst + off, src + off, (size_t)step);
+      lk.lock();
+      if (--pending == 0) done.notify_one();
+    }
+  }
+
+  void grow(int64_t want) {  // under m
+    for (; n_workers < want; ++n_workers)
+      std::thread([this, id = n_workers, g = gen] { run(id, g); }).detach();
+  }
+};
+
+CopyPool* copy_pool() {
+  static CopyPool* pool = new CopyPool;
+  if (pool->pid != getpid()) pool = new CopyPool;
+  return pool;
+}
+
+}  // namespace
+
 extern "C" {
+
+// dst[0, n) = src[0, n), split into up to `threads` contiguous parts of
+// at least 1 MiB (whole 64-byte lines but the last): the pool's workers
+// copy all but the last, the calling thread the last.  The ranges must
+// not overlap.
+void copy_bytes(uint8_t* dst, const uint8_t* src, int64_t n, int32_t threads) {
+  const int64_t kMinPart = int64_t(1) << 20;
+  int64_t parts = threads < 1 ? 1 : threads;
+  if (parts > n / kMinPart) parts = n / kMinPart > 1 ? n / kMinPart : 1;
+  if (parts == 1) {
+    if (n > 0) std::memcpy(dst, src, (size_t)n);
+    return;
+  }
+  const int64_t step = ((n / parts) + 63) & ~int64_t(63);
+  CopyPool* pool = copy_pool();
+  std::lock_guard<std::mutex> one_call(pool->call);
+  const int64_t off = (parts - 1) * step;
+  {
+    std::lock_guard<std::mutex> lk(pool->m);
+    pool->grow(parts - 1);
+    pool->dst = dst;
+    pool->src = src;
+    pool->step = step;
+    pool->parts = parts;
+    pool->pending = parts - 1;
+    ++pool->gen;
+  }
+  pool->work.notify_all();
+  std::memcpy(dst + off, src + off, (size_t)(n - off));
+  std::unique_lock<std::mutex> lk(pool->m);
+  pool->done.wait(lk, [&] { return pool->pending == 0; });
+}
 
 // ---------------------------------------------------------------- IQ ----
 

@@ -81,6 +81,7 @@ from ais_tpu_torch.pipeline.host import (
     suppress_image_ghosts,
     warn_table_overflow,
 )
+from ais_tpu_torch.pipeline.ingest import PinnedRing, chunk_bytes
 from ais_tpu_torch.pipeline.receiver import (
     BurstDemod,
     BurstRecords,
@@ -456,7 +457,8 @@ def _zero_collect_stats() -> dict:
     """The wire path's per-part seconds and counts (`collect_stats`)."""
     return {"exec_s": 0.0, "fetch_s": 0.0, "host_s": 0.0, "steps": 0, "dispatch_s": 0.0,
             "unpack_s": 0.0, "deframe_s": 0.0, "emit_s": 0.0, "recover_s": 0.0, "lanes": 0,
-            "frames": 0, "row_steps": 0, "stage_s": 0.0, "wire_bytes": 0}
+            "frames": 0, "row_steps": 0, "stage_s": 0.0, "wire_bytes": 0, "pinned_steps": 0,
+            "fill_s": 0.0}
 
 
 class WidebandReceiver:
@@ -464,8 +466,12 @@ class WidebandReceiver:
 
     The wire path keeps `collect_stats` (seconds and counts summed over
     steps until `reset_collect_stats`): stage_s and wire_bytes, the
-    seconds in `stage_wire` and the wire bytes it staged (its span
-    `rx.stage` holds `rx.stage.copy`, the host-to-device copy alone);
+    seconds in `stage_wire` and the wire bytes it staged; on a CUDA
+    device pinned_steps and fill_s, the steps staged through the pinned
+    chunk ring (`pipeline/ingest.py`) and the seconds of its threaded
+    fill (its span `rx.stage` holds an `rx.stage.fill` and an
+    `rx.stage.copy`, the copy's enqueue, a chunk; a step copied from
+    pageable memory has one `rx.stage.copy`, the whole copy);
     exec_s, fetch_s and host_s, the parts of `collect` (the wait for the
     device result, the copy to the host, the host back half); dispatch_s,
     the host enqueueing the device program (`dispatch_wire`); within the
@@ -514,6 +520,7 @@ class WidebandReceiver:
         self.collect_stats = _zero_collect_stats()
         self._row_frames = None  # `hdlc_deframe_rows` outputs, made at first use
         self._warned_dense = False  # the missing native library logged once
+        self._ring = None  # the wire ingest's PinnedRing; False once pinning failed
         # (exec + fetch seconds, host seconds) of the last `collect`.
         self.last_collect_s = (0.0, 0.0)
 
@@ -601,34 +608,62 @@ class WidebandReceiver:
 
     def stage_wire(self, raw_u8: np.ndarray, fmt: str = "ci8", pos: int | None = None):
         """Copy one step's wire bytes to the device; returns a handle for
-        `dispatch_wire`.  `fmt` is one of WIRE_FORMATS; its channelizer is
-        built here on first use.  `pos` overrides the stream position
-        (absolute raw index of the first sample) without advancing the
-        counter."""
+        `dispatch_wire`.  On a CUDA device the bytes go through the
+        pinned chunk ring (`pipeline/ingest.py`), and the current stream
+        waits for its copies; `raw_u8` has been read when this returns.
+        `fmt` is one of WIRE_FORMATS; its channelizer is built here on
+        first use.  `pos` overrides the stream position (absolute raw
+        index of the first sample) without advancing the counter."""
         want = wire_nbytes(fmt, self.n_in)
         if raw_u8.size != want:
             raise ValueError(
                 f"{fmt} wire buffer {raw_u8.size} bytes != {want} for n_in {self.n_in}")
         at = self._pos if pos is None else int(pos)
+        st = self.collect_stats
         t0 = time.perf_counter_ns()
         span = SPANS.begin("rx.stage", at, t0)
         try:
             self.prepare(fmt)
-            host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
-            c0 = time.perf_counter_ns()
-            raw = host.to(self.device, non_blocking=True)
-            c1 = time.perf_counter_ns()
-            SPANS.add("rx.stage.copy", at, c0, c1)
-            ph = torch.from_numpy(self._phase0s(at)).to(self.device)
+            ring = self._pinned_ring(raw_u8.size)
+            if ring is not None:
+                raw, ph, fill_ns = ring.stage(np.require(raw_u8, np.uint8, "C"),
+                                              self._phase0s(at), at)
+                st["fill_s"] += fill_ns * 1e-9
+                st["pinned_steps"] += 1
+            else:
+                host = torch.from_numpy(np.require(raw_u8, np.uint8, ("C", "W")))
+                c0 = time.perf_counter_ns()
+                raw = host.to(self.device, non_blocking=True)
+                c1 = time.perf_counter_ns()
+                SPANS.add("rx.stage.copy", at, c0, c1)
+                ph = torch.from_numpy(self._phase0s(at)).to(self.device)
         finally:
             t1 = time.perf_counter_ns()
             SPANS.end(span, t1)
-        st = self.collect_stats
         st["stage_s"] += (t1 - t0) * 1e-9
         st["wire_bytes"] += int(raw_u8.size)
         if pos is None:
             self._pos += self.step_raw
         return raw, ph, at, fmt, raw_u8
+
+    def _pinned_ring(self, nbytes: int) -> PinnedRing | None:
+        """The ring that stages an `nbytes` wire on a CUDA device, built at
+        first use and again for a wire that wants larger chunks; None on
+        another device, or once pinned memory could not be had (each step
+        is then copied from pageable memory, and not counted in
+        `pinned_steps`)."""
+        if self.device.type != "cuda" or self._ring is False:
+            return None
+        chunk = chunk_bytes(nbytes)
+        if self._ring is None or self._ring.chunk < chunk:
+            try:
+                self._ring = PinnedRing(self.device, chunk, self._phase0s(0))
+            except RuntimeError as e:
+                log.warning("no pinned host memory for the wire ingest (%s): each step is "
+                            "copied from pageable memory, a slower stage", e)
+                self._ring = False
+                return None
+        return self._ring
 
     def dispatch_wire(self, staged):
         """Enqueue the device program on a staged step; returns a handle

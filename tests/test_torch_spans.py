@@ -2,9 +2,10 @@
 
 A two-step cr1 stream at a 3-block geometry through the port's
 `WidebandReceiver` on the CPU: the per-part counters, the spans of each
-step, the garbage collector's spans and the log's off state.  One test
-needs a card: a span and the device work it waits for, under
-`torch.profiler`, on one clock.
+step, the garbage collector's spans and the log's off state.  Three
+tests need a card: a span and the device work it waits for, under
+`torch.profiler`, on one clock; the pinned ring's fill and copy spans
+inside their stage; its counters zeroed by `reset_collect_stats`.
 """
 
 import dataclasses
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from ais_tpu_torch.ops.convert import host_bytes
+from ais_tpu_torch.pipeline import ingest
 from ais_tpu_torch.pipeline import wideband as tw
 from ais_tpu_torch.pipeline.host import deframe_wire_records
 from ais_tpu_torch.tx import aivdm_payload_to_bytes
@@ -28,6 +30,7 @@ N_BLOCKS = 3
 PARTS = ("unpack_s", "deframe_s", "emit_s", "recover_s")
 HOST = ("rx.host.unpack", "rx.host.deframe", "rx.host.emit")
 DISPATCH = ("rx.dispatch.channelize", "rx.dispatch.demod", "rx.dispatch.pack")
+PINNED = ("pinned_steps", "fill_s")
 
 
 @pytest.fixture(scope="module")
@@ -63,9 +66,9 @@ def spans():
         SPANS.clear()
 
 
-def _decode(stream, **changes):
+def _decode(stream, device="cpu", **changes):
     cfg, n_in, wires = stream
-    rx = tw.WidebandReceiver(cfg._replace(**changes), n_in=n_in, device="cpu")
+    rx = tw.WidebandReceiver(cfg._replace(**changes), n_in=n_in, device=device)
     got = [rx.decode_wire(w, "cr1") for w in wires]
     return rx, got
 
@@ -188,17 +191,42 @@ def test_stage_counts_its_seconds_and_wire_bytes(stream):
     assert cu8.collect_stats["stage_s"] == 0.0 and cu8.collect_stats["wire_bytes"] == 0
 
 
-def test_the_copy_lies_inside_its_stage(stream, spans):
-    """One `rx.stage.copy` a step, inside that step's `rx.stage`, with its `at`."""
-    rx, _ = _decode(stream)
-    a = spans.arrays()
-    names = list(a["names"])
-    copies = np.nonzero(a["name"] == names.index("rx.stage.copy"))[0]
-    assert sorted(a["at"][copies].tolist()) == [0, rx.step_raw]
-    for i in copies:
+def _inside_stage(a, name: str) -> list:
+    """The `at` of each span `name`, checked to lie inside its step's
+    `rx.stage`."""
+    idx = np.nonzero(a["name"] == list(a["names"]).index(name))[0]
+    for i in idx:
         p = a["parent"][i]
         assert _names(a, [p]) == ["rx.stage"] and a["at"][p] == a["at"][i]
         assert a["start_ns"][p] <= a["start_ns"][i] <= a["end_ns"][i] <= a["end_ns"][p]
+    return sorted(a["at"][idx].tolist())
+
+
+def test_the_copy_lies_inside_its_stage(stream, spans):
+    """One `rx.stage.copy` a step, inside that step's `rx.stage`, with its
+    `at`; on the CPU no pinned ring, so no `rx.stage.fill`."""
+    rx, _ = _decode(stream)
+    a = spans.arrays()
+    assert _inside_stage(a, "rx.stage.copy") == [0, rx.step_raw]
+    assert "rx.stage.fill" not in list(a["names"])
+
+
+@pytest.mark.gpu
+def test_the_fill_and_copy_lie_inside_their_stage_on_card(stream, spans):
+    """On the card each chunk of a step has its `rx.stage.fill` and its
+    `rx.stage.copy` (the enqueue), inside that step's `rx.stage`; the
+    fill spans sum to `fill_s`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pinned ring runs on the card only")
+    rx, _ = _decode(stream, device="cuda")
+    a = spans.arrays()
+    n_chunks = len(ingest.chunk_plan(stream[2][0].size, ingest.chunk_bytes(stream[2][0].size)))
+    want = [0] * n_chunks + [rx.step_raw] * n_chunks
+    assert _inside_stage(a, "rx.stage.fill") == want == _inside_stage(a, "rx.stage.copy")
+    fills = a["name"] == list(a["names"]).index("rx.stage.fill")
+    length = (a["end_ns"][fills] - a["start_ns"][fills]) * 1e-9
+    assert length.sum() == pytest.approx(rx.collect_stats["fill_s"], rel=1e-9)
+    assert rx.collect_stats["pinned_steps"] == 2
 
 
 def test_a_collection_is_a_span_and_disable_unhooks_it(spans):
@@ -239,15 +267,30 @@ def test_a_log_of_its_own():
     assert len(log.arrays()["name"]) == 0
 
 
-def test_reset_zeroes_every_key(stream):
-    rx, _ = _decode(stream, compact_lanes=1)
+def _reset_zeroes_every_key(stream, device):
+    rx, _ = _decode(stream, device=device, compact_lanes=1)
     st = rx.collect_stats
     assert set(st) == {"exec_s", "fetch_s", "host_s", "steps", "dispatch_s", *PARTS, "lanes",
-                       "frames", "row_steps", "stage_s", "wire_bytes"}
-    assert all(v > 0 for v in st.values())
+                       "frames", "row_steps", "stage_s", "wire_bytes", *PINNED}
+    on_card = device == "cuda"
+    assert all(v > 0 for k, v in st.items() if on_card or k not in PINNED)
+    assert on_card or not any(st[k] for k in PINNED)  # no pinned ring on the CPU
     rx.reset_collect_stats()
     assert set(rx.collect_stats) == set(st) and not any(rx.collect_stats.values())
     assert rx.recover_s > 0 and rx.overflow_blocks >= 1  # lifetime, not reset
+
+
+def test_reset_zeroes_every_key(stream):
+    _reset_zeroes_every_key(stream, "cpu")
+
+
+@pytest.mark.gpu
+def test_reset_zeroes_every_key_on_card(stream):
+    """As on the CPU, with the pinned ring's `pinned_steps` and `fill_s`
+    counted, then zeroed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pinned ring runs on the card only")
+    _reset_zeroes_every_key(stream, "cuda")
 
 
 @pytest.mark.gpu
